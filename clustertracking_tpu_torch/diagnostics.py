@@ -68,7 +68,7 @@ class BatchRecord:
     max_lm_iters: int
     mean_rms: float
     wall_s: float            # dispatch + result copy wall-clock
-    backend: str             # '<device>-kernel' | '<device>-torch' | 'scipy'
+    backend: str             # '<device>-fused' | '-gathered' | '-torch' | 'scipy'
 
     @property
     def clusters_per_sec(self) -> float:

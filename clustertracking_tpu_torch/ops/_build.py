@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing here
-runs at import time.
+``.gitignore``), named by a hash of its source, every ``csrc/*.cuh``
+header and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  ``build_kernels`` starts one ``nvcc``
+per missing library, all at once.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["build_dir", "load_kernel_library", "build_log"]
+__all__ = ["build_dir", "build_kernels", "load_kernel_library", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # -fmad=false: no FMA contraction, so each product and sum rounds as the
@@ -56,42 +57,61 @@ def _nvcc() -> str:
     return path
 
 
+def _lib_path(name: str) -> Path:
+    """The hashed library path of ``csrc/<name>.cu``."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_kernels(names) -> None:
+    """Build the missing libraries of ``names`` with one nvcc each, all
+    started together, and load every one of them."""
+    names = [nm for nm in names if nm not in _LOADED]
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    try:
+        for name in names:
+            lib_path = _lib_path(name)
+            if lib_path.exists():
+                _LOADED[name] = (ctypes.CDLL(str(lib_path)), 0.0, "")
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True,
+            )
+            jobs[name] = (proc, tmp, lib_path, time.perf_counter())
+        for name, (proc, tmp, lib_path, t0) in jobs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed building {name}.cu "
+                    f"(rc={proc.returncode}):\n{err[-4000:]}"
+                )
+            os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+            _LOADED[name] = (ctypes.CDLL(str(lib_path)),
+                             time.perf_counter() - t0, err)
+    finally:
+        for proc, tmp, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its hashed library is missing, load
     it and return the ``ctypes.CDLL``."""
-    if name in _LOADED:
-        return _LOADED[name][0]
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_FLAGS).encode()
-    ).hexdigest()[:16]
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"{name}-{digest}.so"
-    seconds, report = 0.0, ""
-    if not lib_path.exists():
-        t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {src.name} "
-                    f"(rc={proc.returncode}):\n{proc.stderr[-4000:]}"
-                )
-            report = proc.stderr
-            os.replace(tmp, lib_path)  # atomic: concurrent builds agree
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    _LOADED[name] = (lib, seconds, report)
-    return lib
+    if name not in _LOADED:
+        build_kernels([name])
+    return _LOADED[name][0]
 
 
 def build_log(name: str) -> tuple:

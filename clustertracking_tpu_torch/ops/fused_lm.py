@@ -1,5 +1,5 @@
-"""Fused window-gather + LM solve for one bucket: the CUDA kernel, its
-plain PyTorch version, and the routing predicate.
+"""Fused window-gather + LM solve for one 2D bucket: the CUDA kernel, its
+plain version, and the routing predicate of every kernel route.
 
 Counterpart of ``clustertracking_tpu/ops/pallas_lm.py``, whose
 ``kernel_fused`` (the TPU route for 2D unconstrained buckets) cuts each
@@ -13,11 +13,13 @@ Levenberg–Marquardt solve in one launch.  Here:
   kernel does not take, and never swaps in the plain version for a CUDA
   tensor.
 - ``fused_lm_2d_reference`` is the plain PyTorch version of the same
-  function, built on ``ops/residual.py`` and ``ops/lm.py::lm_solve`` with
-  the kernel's in-window fit mask.
-- ``kernel_available`` is the static routing predicate that mirrors the
-  reference's ``pallas_available``: buckets it rejects (global-tied slots,
-  constraints, V >= 20) are solved by ``lm_solve``.
+  function: ``gather_stack`` then ``pixel_lm_reference``.
+- ``kernel_route`` is the static routing predicate, the counterpart of the
+  reference's ``pallas_available`` plus its ``fused_ok``: 'fused' for 2D
+  windows that fit ``fused_lm_2d``'s shared memory, 'gathered'
+  (``window_gather`` then ``pixel_lm``) for 3D windows and larger 2D ones,
+  None (``lm_solve``) for global-tied slots, constraints, V >= 20 and
+  zero-slot layouts.
 
 Both versions take the reference's ``solve_fused`` arguments::
 
@@ -37,64 +39,52 @@ import ctypes
 import numpy as np
 import torch
 
-from ..models.packing import ParamLayout, param_names_for
-from ..models.registry import ModelSpec, get_model
+from ..models.packing import ParamLayout
+from ..models.registry import ModelSpec
 from .gather import gather_stack
-from .lm import LMResult, lm_solve
-from .residual import make_model_fns, window_offsets
+from .lm import LMResult
+from .pixel_lm import check_pixel_lm_args, kernel_mask, pixel_lm_reference
+from .pixel_lm import smem_words as _smem_words
+from .window_gather import check_tensor
 
 __all__ = ["check_kernel_args", "fused_lm_2d", "fused_lm_2d_reference",
-           "kernel_available", "kernel_mask"]
+           "kernel_mask", "kernel_route"]
 
 # Unconstrained buckets with this many slots or more are solved by
 # lm_solve (the reference's routing threshold, pallas_lm.py:235; still to
 # be re-measured on the H100).
 _KERNEL_MAX_SLOTS = 20
-# Caps of csrc/fused_lm_2d.cu (kMaxSlots, kMaxFeatures).
-_CUDA_MAX_SLOTS = 20
-_CUDA_MAX_FEATURES = 32
 # Largest window, in pixels, the reference's kernels take (its streaming
 # cap, pallas_lm.py:148).
 _MAX_WINDOW_PIXELS = 1 << 18
+# csrc/fused_lm_2d.cu stages a window of wy·wx pixels and its weights in
+# shared memory beside the LM core, within 200 KB per block.
+_FUSED_CORE_WORDS = _smem_words(2, 0, True)
+_FUSED_MAX_PIXELS = (200 * 1024 // 4 - _FUSED_CORE_WORDS) // 2
 
 
-def kernel_available(model: ModelSpec, layout: ParamLayout,
-                     use_global: bool, constraint,
-                     window_shape=None) -> bool:
-    """Whether the fused kernel route covers this bucket configuration.
+def kernel_route(model: ModelSpec, layout: ParamLayout, use_global: bool,
+                 constraint, window_shape):
+    """The kernel route of a bucket configuration: 'fused', 'gathered' or
+    None (``lm_solve``).
 
-    The same static routing as the reference's ``pallas_available``:
+    The reference's ``pallas_available`` decides kernel or not:
     cross-lane-tied 'global' slots, zero-slot layouts, buckets at or past
     ``_KERNEL_MAX_SLOTS`` and windows past ``_MAX_WINDOW_PIXELS`` go to
-    ``lm_solve``.  Constrained buckets are refused before routing (the
-    rigid kernels are not ported yet)."""
+    ``lm_solve``; constrained buckets are refused before routing (the
+    rigid kernels are not ported yet).  Its ``fused_ok`` decides which
+    kernel: 2D windows within ``_FUSED_MAX_PIXELS`` are fused, 3D windows
+    and larger 2D ones are gathered."""
     if use_global or constraint is not None:
-        return False
+        return None
     if not 0 < layout.n_slots < _KERNEL_MAX_SLOTS:
-        return False
-    if window_shape is not None:
-        if int(np.prod(window_shape)) > _MAX_WINDOW_PIXELS:
-            return False
-    return True
-
-
-def kernel_mask(pos_at, origin, window_shape, radius, fvalid):
-    """The kernel's fit mask, [B, Npix] f32: 1.0 where a pixel lies within
-    ``radius`` of any live feature at its gather-time position.
-
-    Computed as the reference kernel computes it, (off − rel)·(1/r) with
-    1/r rounded to float32 (pallas_lm.py:515), which can differ from
-    ``radius_mask``'s ``/ r`` on a pixel that sits on the boundary."""
-    D = len(window_shape)
-    off = window_offsets(window_shape, torch.float32, pos_at.device)
-    rel = pos_at - origin[:, None, :].to(torch.float32)       # [B, n, D]
-    r2 = None
-    for d in range(D):
-        inv_r = float(np.float32(1.0 / float(radius[d])))
-        dm = (off[d][None, None] - rel[..., d, None]) * inv_r  # [B, n, Np]
-        r2 = dm * dm if r2 is None else r2 + dm * dm
-    hit = (r2 <= 1.0) & (fvalid[:, :, None] > 0.5)
-    return torch.any(hit, dim=1).to(torch.float32)
+        return None
+    npix = int(np.prod(window_shape))
+    if npix > _MAX_WINDOW_PIXELS:
+        return None
+    if len(window_shape) == 2 and npix <= _FUSED_MAX_PIXELS:
+        return "fused"
+    return "gathered"
 
 
 def fused_lm_2d_reference(vect0, const_params, frames, frame_idx, pos_at,
@@ -103,30 +93,15 @@ def fused_lm_2d_reference(vect0, const_params, frames, frame_idx, pos_at,
                           max_iter=60, ftol=1.49e-8, xtol=1.49e-8,
                           lam0=1e-3, lam_up=4.0, lam_down=0.25,
                           lam_max=1e10):
-    """Plain PyTorch version of ``fused_lm_2d``: gather, kernel mask,
-    ``lm_solve``.  Works for any profile and window rank, on any device."""
-    device = frames.device
-    B, n = vect0.shape[0], layout.n_features
-    if fvalid is None:
-        fvalid = torch.ones((B, n), dtype=torch.float32, device=device)
-    fns = make_model_fns(model, layout, tuple(window_shape), device=device)
+    """Plain PyTorch version of ``fused_lm_2d``: ``gather_stack``, then
+    ``pixel_lm_reference``.  Works for any profile and window rank, on any
+    device."""
     pixels = gather_stack(frames, frame_idx, origin, tuple(window_shape))
-    mask = kernel_mask(pos_at, origin, window_shape, radius, fvalid)
-    res = lm_solve(
-        fns.residual, fns.residual_jac, vect0,
-        (const_params, pixels, mask, origin, norm, fvalid),
-        max_iter=max_iter, ftol=ftol, xtol=xtol, lam0=lam0, lam_up=lam_up,
-        lam_down=lam_down, lam_max=lam_max,
-        lower=torch.as_tensor(np.asarray(lo, np.float32), device=device),
-        upper=torch.as_tensor(np.asarray(hi, np.float32), device=device),
-        valid=valid,
-    )
-    return LMResult(
-        x=res.x,
-        cost=torch.where(valid, res.cost, 0.0),
-        n_iter=res.n_iter,
-        converged=res.converged,
-        npix=torch.where(valid, mask.sum(dim=1), 0.0),
+    return pixel_lm_reference(
+        vect0, const_params, pixels, pos_at, origin, norm, valid, fvalid,
+        model=model, layout=layout, window_shape=window_shape, lo=lo, hi=hi,
+        radius=radius, max_iter=max_iter, ftol=ftol, xtol=xtol, lam0=lam0,
+        lam_up=lam_up, lam_down=lam_down, lam_max=lam_max,
     )
 
 
@@ -151,73 +126,40 @@ def _library():
         lib.fused_lm_2d_launch.restype = ctypes.c_int
         lib.fused_lm_2d_smem_words.argtypes = [ctypes.c_int]
         lib.fused_lm_2d_smem_words.restype = ctypes.c_int
+        if lib.fused_lm_2d_smem_words(0) != _FUSED_CORE_WORDS:
+            raise RuntimeError("fused_lm_2d: _FUSED_CORE_WORDS disagrees "
+                               "with csrc/fused_lm_2d.cu")
     return lib
-
-
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"fused_lm_2d: {name} must be a tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"fused_lm_2d: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"fused_lm_2d: {name} has shape {tuple(t.shape)}, "
-            f"expected {tuple(shape)}"
-        )
-    if t.device != device:
-        raise ValueError(
-            f"fused_lm_2d: {name} is on {t.device}, frames on {device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"fused_lm_2d: {name} must be contiguous")
 
 
 def check_kernel_args(vect0, const_params, frames, frame_idx, pos_at,
                       origin, norm, valid, fvalid, *, model, layout,
                       window_shape):
     """Raise on anything ``csrc/fused_lm_2d.cu`` does not take: a profile
-    other than 'gauss' or a 3D window (``NotImplementedError``: the TPU ran
-    those in Pallas, the port has no kernel for them yet), a parameter
-    layout, slot or feature count outside the kernel's, and tensors of the
-    wrong dtype, shape, device or layout."""
-    if model is not get_model("gauss"):
-        raise NotImplementedError(
-            f"fused_lm_2d: profile {model.name!r} has no CUDA kernel yet "
-            "(ROADMAP queue 2: non-gauss profiles in csrc/fused_lm_2d.cu)"
-        )
+    other than 'gauss' (``NotImplementedError``: the TPU ran those in
+    Pallas, the port has no kernel for them yet), a window other than 2D
+    (3D buckets take the gathered route), a parameter layout, slot or
+    feature count outside the kernel's, and tensors of the wrong dtype,
+    shape, device or layout."""
     if len(window_shape) != 2 or layout.ndim != 2:
-        raise NotImplementedError(
-            "fused_lm_2d: 3D windows have no CUDA kernel yet (ROADMAP "
-            "queue 2 item 2: pallas_lm.py `kernel`)"
+        raise ValueError(
+            "fused_lm_2d: takes 2D windows; 3D buckets take the gathered "
+            "route (window_gather, then pixel_lm)"
         )
-    if tuple(layout.param_names) != tuple(
-            param_names_for(model, 2, layout.isotropic)):
-        raise ValueError("fused_lm_2d: unexpected parameter layout")
-    B, V = vect0.shape
-    n, P = layout.n_features, layout.n_params
-    if not 0 < V <= _CUDA_MAX_SLOTS or V != layout.n_slots:
-        raise ValueError(f"fused_lm_2d: V={V} slots outside the kernel's "
-                         f"1..{_CUDA_MAX_SLOTS}")
-    if n > _CUDA_MAX_FEATURES:
-        raise ValueError(f"fused_lm_2d: n={n} features > "
-                         f"{_CUDA_MAX_FEATURES}")
     if frames.dim() != 3:
         raise ValueError("fused_lm_2d: frames must be [T, H, W]")
     T, H, W = frames.shape
     if window_shape[0] > H or window_shape[1] > W:
         raise ValueError(f"fused_lm_2d: window {window_shape} exceeds "
                          f"frame {(H, W)}")
+    check_pixel_lm_args(vect0, const_params, None, pos_at, origin, norm,
+                        valid, fvalid, model=model, layout=layout,
+                        window_shape=window_shape, who="fused_lm_2d")
     device = frames.device
-    f32, i32 = torch.float32, torch.int32
-    _check("frames", frames, f32, (T, H, W), device)
-    _check("vect0", vect0, f32, (B, V), device)
-    _check("const_params", const_params, f32, (B, n, P), device)
-    _check("frame_idx", frame_idx, i32, (B,), device)
-    _check("pos_at", pos_at, f32, (B, n, 2), device)
-    _check("origin", origin, i32, (B, 2), device)
-    _check("norm", norm, f32, (B,), device)
-    _check("valid", valid, torch.bool, (B,), device)
-    _check("fvalid", fvalid, f32, (B, n), device)
+    check_tensor("fused_lm_2d", "frames", frames, torch.float32, (T, H, W),
+                 device)
+    check_tensor("fused_lm_2d", "frame_idx", frame_idx, torch.int32,
+                 (vect0.shape[0],), device)
 
 
 def fused_lm_2d(vect0, const_params, frames, frame_idx, pos_at, origin,
@@ -228,8 +170,8 @@ def fused_lm_2d(vect0, const_params, frames, frame_idx, pos_at, origin,
 
     CUDA tensors launch ``csrc/fused_lm_2d.cu``; CPU tensors get
     ``fused_lm_2d_reference``.  Raises ``NotImplementedError`` on CUDA for
-    what the TPU ran in Pallas but this port has no kernel for yet: a
-    profile other than 'gauss' and 3D windows."""
+    a profile other than 'gauss', which the TPU ran in Pallas but this
+    port has no kernel for yet."""
     kw = dict(model=model, layout=layout, window_shape=window_shape, lo=lo,
               hi=hi, radius=radius, max_iter=max_iter, ftol=ftol,
               xtol=xtol, lam0=lam0, lam_up=lam_up, lam_down=lam_down,
@@ -253,13 +195,12 @@ def fused_lm_2d(vect0, const_params, frames, frame_idx, pos_at, origin,
     T, H, W = frames.shape
     wy, wx = (int(w) for w in window_shape)
     f32, i32 = torch.float32, torch.int32
-    lib = _library()
-    npix_cap = (200 * 1024 // 4 - lib.fused_lm_2d_smem_words(0)) // 2
-    if wy * wx > npix_cap:
-        raise NotImplementedError(
-            f"fused_lm_2d: a {wy}x{wx} window does not fit shared memory "
-            "(ROADMAP queue 2 item 3: the streaming kernel)"
+    if wy * wx > _FUSED_MAX_PIXELS:
+        raise ValueError(
+            f"fused_lm_2d: a {wy}x{wx} window does not fit shared memory; "
+            "such buckets take the gathered route (kernel_route)"
         )
+    lib = _library()
     valid_i = valid.to(i32)
     slot_idx = torch.as_tensor(layout.slot_idx, dtype=i32, device=device)
     lo_t = torch.as_tensor(np.asarray(lo, np.float32), device=device)

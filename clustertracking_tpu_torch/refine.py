@@ -6,9 +6,11 @@ solve that fits every cluster of the bucket together:
 
 - window gather, fit-region mask, parameter packing, LM solve and the
   refit-on-shift outer loop (``max_iter``/``max_shift``) all run on the
-  device that holds the frames; on CUDA, buckets the fused kernel covers
-  (``ops/fused_lm.py::kernel_available``) go through
-  ``csrc/fused_lm_2d.cu``, the rest through ``ops/lm.py::lm_solve``;
+  device that holds the frames; on CUDA each bucket takes the kernel route
+  ``ops/fused_lm.py::kernel_route`` names: 'fused' (2D windows,
+  ``csrc/fused_lm_2d.cu``), 'gathered' (3D and large 2D windows,
+  ``csrc/window_gather.cu`` then ``csrc/pixel_lm.cu``, once per refit
+  round) or none (``ops/lm.py::lm_solve``);
 - fits whose RMS residual (normalized by the cluster's signal scale)
   exceeds ``max_rms_dev`` are rejected: original values kept, ``cost``
   NaN;
@@ -36,10 +38,12 @@ from . import diagnostics
 from .find import find_clusters
 from .models.packing import build_layout
 from .models.registry import ModelSpec, get_model
-from .ops.fused_lm import fused_lm_2d, kernel_available
+from .ops.fused_lm import fused_lm_2d, kernel_route
 from .ops.gather import gather_stack, origins_for, radius_mask
 from .ops.lm import lm_solve
+from .ops.pixel_lm import pixel_lm
 from .ops.residual import make_model_fns
+from .ops.window_gather import window_gather
 from .utils import default_size_columns, guess_pos_columns, validate_tuple
 
 if TYPE_CHECKING:
@@ -50,15 +54,19 @@ __all__ = ["refine_leastsq"]
 _LANE_PAD = 32  # lanes are padded to multiples of this (reference parity)
 
 _LM_BACKENDS = ("auto", "kernel", "torch")
+_GATHER_BACKENDS = ("auto", "torch")
 
 
-def _uses_kernel(lm_backend, routed, device) -> bool:
-    """'auto' takes the fused kernel for routed buckets on CUDA; 'kernel'
-    forces the fused route (its plain version on CPU); 'torch' forces
+def _route_taken(lm_backend, route, device):
+    """The route a bucket's solve takes: 'fused', 'gathered' or 'torch'.
+
+    'auto' takes the bucket's kernel route (``kernel_route``) on CUDA;
+    'kernel' forces it (its plain versions on CPU); 'torch' forces
     lm_solve."""
-    if lm_backend == "kernel":
-        return True
-    return lm_backend == "auto" and routed and device.type == "cuda"
+    if lm_backend == "kernel" or (lm_backend == "auto" and route is not None
+                                  and device.type == "cuda"):
+        return route
+    return "torch"
 
 
 def _slot_bounds(layout, window_shape, frame_shape, bounds_key=()):
@@ -108,6 +116,8 @@ def _bucket_solver(
     xtol: float,
     compute_error: bool,
     lm_backend: str = "auto",
+    gather_backend: str = "auto",
+    streaming=None,
 ):
     """Build the solver for one bucket configuration.
 
@@ -116,6 +126,13 @@ def _bucket_solver(
     fvalid [B, n] f32 | None) -> (params, rms, converged, iters, std)``
     runs on the device of ``frames``.  ``residual_factor`` and ``pose0``
     only matter for constrained buckets, which are not ported yet.
+
+    ``lm_backend`` as ``refine_leastsq``'s.  ``gather_backend``: 'auto'
+    gathers windows with ``window_gather`` (the CUDA kernel on CUDA,
+    ``gather_stack`` on CPU), 'torch' with ``gather_stack``.
+    ``streaming``: ``pixel_lm``'s mode on the gathered route (None picks
+    by occupancy; True / False force streamed / resident), as the
+    reference's ``make_pallas_lm`` takes it.
     """
     del residual_factor
     if constraint is not None:
@@ -126,6 +143,10 @@ def _bucket_solver(
     if lm_backend not in _LM_BACKENDS:
         raise ValueError(f"Unknown lm_backend {lm_backend!r}; "
                          f"one of {_LM_BACKENDS}")
+    if gather_backend not in _GATHER_BACKENDS:
+        raise ValueError(f"Unknown gather_backend {gather_backend!r}; "
+                         f"one of {_GATHER_BACKENDS}")
+    gather = window_gather if gather_backend == "auto" else gather_stack
     layout = build_layout(model, ndim, isotropic, n, dict(param_mode_key))
     if np.any(layout.global_slots):
         raise NotImplementedError(
@@ -134,8 +155,8 @@ def _bucket_solver(
         )
     pos_idx = list(layout.pos_param_idx)
     V = layout.n_slots
-    routed = kernel_available(model, layout, False, None, window_shape)
-    if lm_backend == "kernel" and not routed:
+    route = kernel_route(model, layout, False, None, window_shape)
+    if lm_backend == "kernel" and route is None:
         raise ValueError(
             "lm_backend='kernel' unsupported for this configuration "
             f"(V={V} slots, window {window_shape})"
@@ -144,7 +165,7 @@ def _bucket_solver(
     def solve(frames, frame_idx, params0, pose0, valid, fvalid=None):
         del pose0
         device = frames.device
-        use_kernel = _uses_kernel(lm_backend, routed, device)
+        taken = _route_taken(lm_backend, route, device)
         B = params0.shape[0]
         frame_shape = tuple(frames.shape[1:])
         signal0 = params0[..., layout.signal_param_idx]
@@ -163,17 +184,19 @@ def _bucket_solver(
         def solve_round(vect, need):
             pos_at = positions_of(vect)
             origin = origins_for(pos_at, window_shape, frame_shape)
-            if use_kernel:
-                res = fused_lm_2d(
-                    vect, params0, frames, frame_idx, pos_at, origin, norm,
-                    need, fvalid, model=model, layout=layout,
-                    window_shape=window_shape, lo=lo_np, hi=hi_np,
-                    radius=radius, max_iter=lm_max_iter, ftol=ftol,
-                    xtol=xtol,
-                )
+            kw = dict(model=model, layout=layout,
+                      window_shape=window_shape, lo=lo_np, hi=hi_np,
+                      radius=radius, max_iter=lm_max_iter, ftol=ftol,
+                      xtol=xtol)
+            if taken == "fused":
+                res = fused_lm_2d(vect, params0, frames, frame_idx, pos_at,
+                                  origin, norm, need, fvalid, **kw)
+            elif taken == "gathered":
+                pixels = gather(frames, frame_idx, origin, window_shape)
+                res = pixel_lm(vect, params0, pixels, pos_at, origin, norm,
+                               need, fvalid, streaming=streaming, **kw)
             else:
-                pixels = gather_stack(frames, frame_idx, origin,
-                                      window_shape)
+                pixels = gather(frames, frame_idx, origin, window_shape)
                 mask = radius_mask(pos_at, origin, window_shape, radius,
                                    fvalid=fvalid)
                 res = lm_solve(
@@ -224,7 +247,7 @@ def _bucket_solver(
                     torch.zeros((0,), device=device))
         pos = positions_of(vect_best)
         origin = origins_for(pos, window_shape, frame_shape)
-        pixels = gather_stack(frames, frame_idx, origin, window_shape)
+        pixels = gather(frames, frame_idx, origin, window_shape)
         mask = radius_mask(pos, origin, window_shape, radius, fvalid=fvalid)
         r, J = fns.residual_jac(
             vect_best, params0, pixels, mask, origin, norm, *fv_extra
@@ -406,9 +429,10 @@ def refine_leastsq(
     'fit_n_iter'.  Frames are stacked per ``frames_per_dispatch`` chunk
     onto ``device``, where every bucket is solved.
 
-    ``lm_backend``: 'auto' (the fused CUDA kernel for the buckets it
-    covers, on CUDA), 'kernel' (force the fused route; its plain version
-    on CPU) or 'torch' (``lm_solve``).
+    ``lm_backend``: 'auto' (on CUDA, each bucket's kernel route:
+    ``fused_lm_2d`` for 2D windows, ``window_gather`` then ``pixel_lm``
+    for 3D and large 2D ones), 'kernel' (force the kernel route; its plain
+    versions on CPU) or 'torch' (``lm_solve``).
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -560,10 +584,11 @@ def refine_leastsq(
             valid & ~np.isfinite(rms)
         ).any():
             _nan_trap_raise(p, rms, model, ndim)
-        routed = kernel_available(model, p["layout"], False, None,
-                                  p["wshape"])
-        route = ("kernel" if _uses_kernel(lm_backend, routed, device)
-                 else "torch")
+        route = _route_taken(
+            lm_backend,
+            kernel_route(model, p["layout"], False, None, p["wshape"]),
+            device,
+        )
         diagnostics.record_batch(
             cluster_size=n,
             n_clusters=int(valid.sum()),

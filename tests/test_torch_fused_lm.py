@@ -21,8 +21,8 @@ from clustertracking_tpu_torch import artificial
 from clustertracking_tpu_torch.entry import example_batch
 from clustertracking_tpu_torch.models import build_layout, get_model
 from clustertracking_tpu_torch.ops.fused_lm import (
-    check_kernel_args, fused_lm_2d, fused_lm_2d_reference, kernel_available,
-    kernel_mask)
+    check_kernel_args, fused_lm_2d, fused_lm_2d_reference, kernel_mask,
+    kernel_route)
 from clustertracking_tpu_torch.ops.gather import origins_for, radius_mask
 from clustertracking_tpu_torch.refine import _slot_bounds
 
@@ -168,10 +168,11 @@ def test_check_kernel_args_refuses_profiles_without_a_kernel():
 
 
 def test_check_kernel_args_refuses_3d_windows():
+    """3D buckets take the gathered route (window_gather, pixel_lm)."""
     args, kw = _kernel_args()
     kw["window_shape"] = (5, 9, 9)
     kw["layout"] = build_layout(get_model("gauss"), 3, True, 2, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="gathered route"):
         check_kernel_args(*args, **kw)
 
 
@@ -184,24 +185,25 @@ def test_wrapper_refuses_other_devices():
 
 
 @pytest.mark.parametrize("n,modes,use_global,window,expect", [
-    (2, {}, False, (13, 13), True),
-    (6, {}, False, (24, 24), True),                  # V = 18
-    (8, {}, False, (32, 32), False),                 # V = 24 >= 20
-    (2, {}, True, (13, 13), False),                  # global-tied slots
-    (2, {}, False, (600, 600), False),               # past the window cap
+    (2, {}, False, (13, 13), "fused"),
+    (6, {}, False, (24, 24), "fused"),               # V = 18
+    (8, {}, False, (32, 32), None),                  # V = 24 >= 20
+    (2, {}, True, (13, 13), None),                   # global-tied slots
+    (2, {}, False, (600, 600), None),                # past the window cap
     (2, {"signal": "const", "y": "const", "x": "const"}, False, (13, 13),
-     False),                                         # nothing to fit
+     None),                                          # nothing to fit
 ])
 def test_kernel_available_routing(n, modes, use_global, window, expect):
+    """kernel_route (which replaced kernel_available) on 2D buckets."""
     lay = build_layout(get_model("gauss"), 2, True, n, modes)
-    assert kernel_available(get_model("gauss"), lay, use_global, None,
-                            window) is expect
+    assert kernel_route(get_model("gauss"), lay, use_global, None,
+                        window) == expect
 
 
 def test_kernel_available_refuses_constraints():
     lay = build_layout(get_model("gauss"), 2, True, 2, {})
-    assert not kernel_available(get_model("gauss"), lay, False, object(),
-                                (13, 13))
+    assert kernel_route(get_model("gauss"), lay, False, object(),
+                        (13, 13)) is None
 
 
 def test_kernel_mask_matches_radius_mask_on_the_fixtures():
@@ -335,10 +337,10 @@ def test_refine_leastsq_kernel_route_matches_plain_route_on_the_card(
     frames += rng.normal(0.0, 1.0, frames.shape)
     f = pd.DataFrame(rows)
     if isotropic:
-        size_cols, routes = ["size"], {"cuda-kernel"}
+        size_cols, routes = ["size"], {"cuda-fused"}
         kw = dict(param_mode={"size": "cluster"}, param_val={"size": 2.2})
     else:
-        size_cols, routes = ["size_y", "size_x"], {"cuda-kernel",
+        size_cols, routes = ["size_y", "size_x"], {"cuda-fused",
                                                    "cuda-torch"}
         f["size_y"], f["size_x"] = 2.2, 2.2
         kw = dict(param_mode={"size_y": "cluster", "size_x": "cluster"})
@@ -390,7 +392,7 @@ def test_refine_leastsq_fitted_background_bounds_and_edges_on_the_card():
     with diagnostics.collect() as stats:
         out_k = refine_leastsq(f, frames, **kw)
     out_p = refine_leastsq(f, frames, lm_backend="torch", **kw)
-    assert {b.backend for b in stats.batches} == {"cuda-kernel"}
+    assert {b.backend for b in stats.batches} == {"cuda-fused"}
     assert out_k["fit_converged"].all()
     np.testing.assert_allclose(out_k[["y", "x", "size"]].to_numpy(),
                                out_p[["y", "x", "size"]].to_numpy(),

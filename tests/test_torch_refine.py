@@ -28,7 +28,8 @@ from clustertracking_tpu.models.registry import get_model as jax_get_model
 from clustertracking_tpu.refine import _bucket_solver as jax_bucket_solver
 import clustertracking_tpu_torch as ctt
 from clustertracking_tpu_torch import diagnostics
-from clustertracking_tpu_torch.entry import example_batch
+from clustertracking_tpu_torch.entry import (
+    MODES_3D, RADIUS_3D, WINDOW_3D, example_batch, example_batch_3d)
 from clustertracking_tpu_torch.models import get_model
 from clustertracking_tpu_torch.refine import _bucket_solver
 
@@ -58,11 +59,11 @@ def _solvers(lm_backend, max_iter, lm_max_iter):
     return solve, jsolve
 
 
-def _assert_bucket_close(out, jout, iters_equal):
+def _assert_bucket_close(out, jout, iters_equal, pos=slice(2, 4)):
     params, rms, conv, iters, _ = out
     jparams, jrms, jconv, jiters, _ = (np.asarray(a) for a in jout)
     params = params.numpy()
-    np.testing.assert_allclose(params[..., 2:4], jparams[..., 2:4],
+    np.testing.assert_allclose(params[..., pos], jparams[..., pos],
                                atol=POS_ATOL, rtol=0)
     np.testing.assert_allclose(params[..., 1], jparams[..., 1], rtol=RTOL,
                                atol=0)
@@ -87,6 +88,65 @@ def test_bucket_solver_matches_jax(lm_backend, max_iter, lm_max_iter,
     out = solve(*[torch.as_tensor(a) for a in arrays])
     jout = jsolve(*[jnp.asarray(a) for a in arrays])
     _assert_bucket_close(out, jout, iters_equal)
+
+
+@pytest.mark.parametrize("max_iter,lm_max_iter,iters_equal", [
+    (1, 2, True),
+    (10, 60, False),    # config 4's schedule, run to convergence
+])
+def test_bucket_solver_3d_matches_jax_pallas(max_iter, lm_max_iter,
+                                             iters_equal):
+    """Config 4's bucket (anisotropic 3D dimers, 9×13×13 windows, V = 14)
+    at B=8 on 32×48×48 stacks with noise (sigma 1): the port's gathered
+    route ('kernel' = window_gather and pixel_lm's plain versions on the
+    CPU) against the JAX solver's Pallas route in interpret mode."""
+    frames, fidx, params0, pose0, valid = example_batch_3d(
+        B=8, shape=(32, 48, 48))
+    frames = frames + np.random.default_rng(3).normal(
+        0.0, 1.0, frames.shape).astype(np.float32)
+    arrays = (frames, fidx, params0, pose0, valid)
+    args = (3, False, 2, MODES_3D, WINDOW_3D, RADIUS_3D, (), None, 1e5,
+            max_iter, 1.0, lm_max_iter, 1.49e-8, 1.49e-8, False)
+    solve, _ = _bucket_solver(get_model("gauss"), *args, "kernel")
+    jsolve, _ = jax_bucket_solver(jax_get_model("gauss"), *args, "pallas")
+    out = solve(*[torch.as_tensor(a) for a in arrays])
+    jout = jsolve(*[jnp.asarray(a) for a in arrays])
+    params, jparams = out[0].numpy(), np.asarray(jout[0])
+    np.testing.assert_allclose(params[..., 5:8], jparams[..., 5:8],
+                               atol=POS_ATOL, rtol=0)  # sizes
+    _assert_bucket_close(out, jout, iters_equal, pos=slice(2, 5))
+
+
+def test_refine_leastsq_3d_multichunk_matches_jax_pallas():
+    """tests/test_pallas_lm.py::test_pallas_3d_multichunk_ctab_matches_xla's
+    z-stack dimers: the port's kernel route (plain versions on the CPU)
+    against the reference's Pallas route, to that test's 2e-3 px."""
+    rng = np.random.default_rng(6)
+    img = np.zeros((32, 48, 48))
+    rows = []
+    for c in [(14.0, 14.0, 14.0), (16.0, 34.0, 30.0)]:
+        true = artificial.draw_cluster(
+            img, np.asarray(c), size=(1.5, 2.2, 2.2), separation=4.5, n=2,
+            signal=150.0, angle=rng.uniform(0, np.pi))
+        for p in true + rng.uniform(-0.2, 0.2, true.shape):
+            rows.append({"frame": 0, "z": p[0], "y": p[1], "x": p[2],
+                         "signal": 150.0})
+    f = pd.DataFrame(rows)
+    f["size_z"], f["size_y"], f["size_x"] = 1.4, 2.1, 2.1
+    kw = dict(diameter=(7, 9, 9), separation=5.0, param_mode={
+        "size_z": "var", "size_y": "var", "size_x": "var"})
+    with diagnostics.collect() as stats:
+        out = ctt.refine_leastsq(f, img, lm_backend="kernel", **kw)
+    jout = ct.refine_leastsq(f, img, lm_backend="pallas", **kw)
+    assert {b.backend for b in stats.batches} == {"cpu-gathered"}
+    assert out["cost"].notna().all()
+    cols = ["z", "y", "x", "signal", "size_z", "size_y"]
+    np.testing.assert_allclose(out[cols].to_numpy(), jout[cols].to_numpy(),
+                               rtol=0, atol=2e-3)
+    centers = np.array([[14.0, 14.0, 14.0], [16.0, 34.0, 30.0]])
+    err = np.abs(out[["z", "y", "x"]].to_numpy().reshape(2, 2, 3)
+                 .mean(axis=1) - centers).max()
+    assert err < 0.05
 
 
 def test_entry_runs_the_main_path_on_cpu():
