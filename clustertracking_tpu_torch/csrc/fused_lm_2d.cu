@@ -1,5 +1,6 @@
-// Fused window-gather + Levenberg–Marquardt solve for 2D gauss-model
-// cluster buckets, one warp per cluster.
+// Fused window-gather + Levenberg–Marquardt solve for 2D cluster buckets,
+// one warp per cluster: every built-in profile, unconstrained or with a
+// rigid 2D n-gon pose.
 //
 // Replaces the TPU kernel ops/pallas_lm.py::make_pallas_lm.kernel_fused
 // (clustertracking_tpu/ops/pallas_lm.py:1213, entered by solve_fused),
@@ -8,6 +9,10 @@
 // mask once from the gather-time positions, and runs the whole masked LM
 // solve (one Jacobian sweep per iteration, Marquardt damping, projected
 // trial point, ftol/xtol/plateau/stuck tests) without leaving the chip.
+// Its rigid-pose variant (pallas_lm.py:330-358, :570-585, :759-770; the
+// TPU's config-3 hot path) is the Pose = kNgon2D instantiation here: the
+// compact vector [center, angle, (distance), non-position slots], the
+// n-gon positions and their chain-rule Jacobian (lm_core.cuh).
 //
 // What bounds it on the H100: nothing is read from device memory inside
 // the LM loop — the window (wy·wx floats) and its mask weights are staged
@@ -17,8 +22,9 @@
 // per cluster, lanes over pixels, lanes own the cost/g/H sums); this file
 // only stages the window and hands the core every window pixel in raster
 // order, out-of-mask pixels with weight 0.  Shared memory per warp is
-// 2·wy·wx + 1,947 words, so a 13×13 window takes ~9 KB and a block holds
-// up to 4 warps.
+// 2·wy·wx + 1,947 words (gauss, unconstrained; a profile's extras and a
+// pose's constants add to the core), so a 13×13 window takes ~9 KB and a
+// block holds up to 4 warps.
 //
 // Numerics follow the reference kernel: the mask is computed as
 // (off − rel)·(1/r) with explicit _rn intrinsics, so npix matches it
@@ -53,6 +59,7 @@ struct Problem {
   int B, n, P, V, iso, wy, wx;
   float inv_ry, inv_rx;
   LMConf lm;
+  ModelArgs ma;              // profile extras and rigid pose
   float* x_out;              // [B, V]
   float* cost;               // [B]
   int* n_iter;               // [B]
@@ -76,17 +83,19 @@ struct WindowPixels {
 };
 
 // Per-warp shared memory: the window, its weights, then the LM core.
+template <int Prof, int Pose>
 __host__ __device__ inline CoreLayout warp_layout(int npix) {
-  return core_layout<2>(2 * npix);
+  return core_layout<2, Prof, Pose>(2 * npix);
 }
 
+template <int Prof, int Pose>
 __global__ void fused_lm_2d_kernel(Problem p, int warps_per_block) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * warps_per_block + warp;
   if (b >= p.B) return;
   const int npx = p.wy * p.wx;
-  const CoreLayout L = warp_layout(npx);
+  const CoreLayout L = warp_layout<Prof, Pose>(npx);
   float* sm = smem + (size_t)warp * L.total;
   float* win = sm;
   float* wgt = sm + npx;
@@ -111,9 +120,11 @@ __global__ void fused_lm_2d_kernel(Problem p, int warps_per_block) {
     return;
   }
 
-  const Cluster c{p.cp + (size_t)b * n * p.P, p.fvalid + (size_t)b * n,
-                  p.slot_idx, {(float)oy, (float)ox, 0.f}, n, p.P, V, p.iso};
-  stage_slots<2>(c, reinterpret_cast<int*>(sm + L.fs), lane);
+  const Cluster c = make_cluster(p.cp + (size_t)b * n * p.P,
+                                 p.fvalid + (size_t)b * n, p.slot_idx,
+                                 (float)oy, (float)ox, 0.f, n, p.P, V, p.iso,
+                                 p.ma, b);
+  stage_slots<2, Prof>(c, reinterpret_cast<int*>(sm + L.fs), lane);
 
   // Stage the window and the fit mask (computed once, from the
   // gather-time positions, as the reference kernel does).
@@ -139,7 +150,8 @@ __global__ void fused_lm_2d_kernel(Problem p, int warps_per_block) {
   }
   for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
 
-  const LMOut r = lm_run<2>(c, p.lm, sm, L, lane, WindowPixels{win, wgt, npx, p.wx});
+  const LMOut r = lm_run<2, Prof, Pose>(c, p.lm, sm, L, lane,
+                                        WindowPixels{win, wgt, npx, p.wx});
 
   if (lane < V) p.x_out[(size_t)b * V + lane] = xs[lane];
   if (lane == 0) {
@@ -150,14 +162,66 @@ __global__ void fused_lm_2d_kernel(Problem p, int warps_per_block) {
   }
 }
 
-}  // namespace
-
-extern "C" int fused_lm_2d_smem_words(int npix) {
-  return warp_layout(npix).total;
+template <int Prof, int Pose>
+int launch_t(Problem p, cudaStream_t stream) {
+  const size_t warp_bytes =
+      sizeof(float) * (size_t)warp_layout<Prof, Pose>(p.wy * p.wx).total;
+  constexpr size_t kBlockBudget = 200 * 1024;
+  int wpb = (int)(kBlockBudget / warp_bytes);
+  if (wpb > 4) wpb = 4;
+  if (wpb < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = warp_bytes * wpb;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_lm_2d_kernel<Prof, Pose>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (p.B + wpb - 1) / wpb;
+  fused_lm_2d_kernel<Prof, Pose><<<blocks, 32 * wpb, smem, stream>>>(p, wpb);
+  return (int)cudaGetLastError();
 }
 
-// Launches the solve on `stream`.  Returns the cudaGetLastError() code of
-// the launch (0 = cudaSuccess), or cudaErrorInvalidValue for a problem the
+template <int Pose>
+int launch_pose(int prof, Problem p, cudaStream_t s) {
+  switch (prof) {
+    case kGauss: return launch_t<kGauss, Pose>(p, s);
+    case kRing: return launch_t<kRing, Pose>(p, s);
+    case kHat: return launch_t<kHat, Pose>(p, s);
+    case kDisc: return launch_t<kDisc, Pose>(p, s);
+    case kInvSeries: return launch_t<kInvSeries, Pose>(p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int Pose>
+int words_pose(int prof, int npix) {
+  switch (prof) {
+    case kGauss: return warp_layout<kGauss, Pose>(npix).total;
+    case kRing: return warp_layout<kRing, Pose>(npix).total;
+    case kHat: return warp_layout<kHat, Pose>(npix).total;
+    case kDisc: return warp_layout<kDisc, Pose>(npix).total;
+    case kInvSeries: return warp_layout<kInvSeries, Pose>(npix).total;
+  }
+  return -1;
+}
+
+}  // namespace
+
+// Per-warp shared memory of a launch, in 4-byte words (−1: no such
+// instantiation).
+extern "C" int fused_lm_2d_smem_words(int npix, int prof, int pose) {
+  if (pose == kNoPose) return words_pose<kNoPose>(prof, npix);
+  if (pose == kNgon2D) return words_pose<kNgon2D>(prof, npix);
+  return -1;
+}
+
+// Launches the solve on `stream`.  prof / pose: the profile tag and pose
+// kind (lm_core.cuh; pose kNoPose or kNgon2D); nx: extras per feature;
+// for a rigid bucket (V = the compact length) fit_dist, circ, rc_fixed =
+// circ·distance, base = the n-gon angles [n] and xn [B] = the inert
+// position slots' max |x|.  Returns the cudaGetLastError() code of the
+// launch (0 = cudaSuccess), or cudaErrorInvalidValue for a problem the
 // kernel does not take.
 extern "C" int fused_lm_2d_launch(
     const float* frames, int T, int H, int W,
@@ -168,30 +232,26 @@ extern "C" int fused_lm_2d_launch(
     int B, int n, int P, int V, int iso, int wy, int wx,
     float inv_ry, float inv_rx, int max_iter, float ftol, float xtol,
     float lam0, float lam_up, float lam_down, float lam_max, float plateau,
+    int prof, int nx, int pose, int fit_dist, float circ, float rc_fixed,
+    const float* base, const float* xn,
     float* x_out, float* cost, int* n_iter, int* converged, float* npix,
     void* stream) {
+  const int n_ex = prof == kInvSeries ? nx : (prof == kRing || prof == kHat);
   if (V < 1 || V > kMaxSlots || n < 1 || n > kMaxFeatures ||
-      P != (iso ? 5 : 6) || wy < 1 || wx < 1 || B < 0) {
+      P != (iso ? 5 : 6) + n_ex || nx != n_ex || nx > kMaxSeries ||
+      wy < 1 || wx < 1 || B < 0 || (pose != kNoPose && pose != kNgon2D) ||
+      (pose != kNoPose && (base == nullptr || xn == nullptr ||
+                           V < PoseDim<kNgon2D>::Q + fit_dist))) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0) return 0;
-  const size_t warp_bytes = sizeof(float) * (size_t)warp_layout(wy * wx).total;
-  constexpr size_t kBlockBudget = 200 * 1024;
-  int wpb = (int)(kBlockBudget / warp_bytes);
-  if (wpb > 4) wpb = 4;
-  if (wpb < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = warp_bytes * wpb;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_lm_2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const LMConf lm{lo, hi, max_iter, ftol, xtol, lam0, lam_up, lam_down,
                   lam_max, plateau};
+  const ModelArgs ma{nx, base, circ, rc_fixed, fit_dist, xn};
   Problem p{frames, T, H, W, frame_idx, origin, x0, cp, pos_at, norm, valid,
             fvalid, slot_idx, B, n, P, V, iso, wy, wx, inv_ry, inv_rx, lm,
-            x_out, cost, n_iter, converged, npix};
-  const int blocks = (B + wpb - 1) / wpb;
-  fused_lm_2d_kernel<<<blocks, 32 * wpb, smem, (cudaStream_t)stream>>>(p, wpb);
-  return (int)cudaGetLastError();
+            ma, x_out, cost, n_iter, converged, npix};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pose == kNgon2D) return launch_pose<kNgon2D>(prof, p, s);
+  return launch_pose<kNoPose>(prof, p, s);
 }

@@ -1,5 +1,6 @@
-// Levenberg–Marquardt solve of gauss-model cluster buckets on windows
-// gathered beforehand (2D and 3D), one warp per cluster.
+// Levenberg–Marquardt solve of cluster buckets on windows gathered
+// beforehand (2D and 3D), one warp per cluster: every built-in profile,
+// unconstrained or (3D) with a rigid pose.
 //
 // Replaces two TPU kernels of ops/pallas_lm.py::make_pallas_lm, both
 // entered by its `solve` (clustertracking_tpu/ops/pallas_lm.py:1330):
@@ -10,7 +11,10 @@
 //     with pixel chunks copied from HBM on every sweep, for windows too
 //     big to keep resident.
 // Both modes are one source here: `Streamed` selects where a sweep reads
-// its pixels from.
+// its pixels from.  The rigid-pose variants of both (pallas_lm.py:330-358,
+// :586-701, :771-814) are the Pose = kAxis3D (3D dimers: center, polar,
+// azimuth) and kRotvec3D (trimers, tetramers: center, rotation vector)
+// instantiations (lm_core.cuh); a rigid 2D bucket takes fused_lm_2d.cu.
 //
 // The GPU form of the center-out order and the dead-chunk skip: the fit
 // mask depends only on the gather-time positions, so it is fixed for the
@@ -68,6 +72,7 @@ struct Problem {
   int sy, sz, my, mx;        // coordinate packing: shifts and masks
   float inv_r[3];            // 1/radius, outermost axis first
   LMConf lm;
+  ModelArgs ma;              // profile extras and rigid pose
   float* x_out;              // [B, V]
   float* cost;               // [B]
   int* n_iter;               // [B]
@@ -128,19 +133,19 @@ struct StreamedPixels {
 
 // Per-warp shared memory: (resident) the voxel list and its values, then
 // the LM core.
-template <int D>
+template <int D, int Prof, int Pose>
 __host__ __device__ inline CoreLayout warp_layout(int npix, bool streamed) {
-  return core_layout<D>(streamed ? 0 : 2 * npix);
+  return core_layout<D, Prof, Pose>(streamed ? 0 : 2 * npix);
 }
 
-template <int D, bool Streamed>
+template <int D, bool Streamed, int Prof, int Pose>
 __global__ void pixel_lm_kernel(Problem p, int warps_per_block) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * warps_per_block + warp;
   if (b >= p.B) return;
   const int npx = p.wz * p.wy * p.wx;
-  const CoreLayout L = warp_layout<D>(npx, Streamed);
+  const CoreLayout L = warp_layout<D, Prof, Pose>(npx, Streamed);
   float* sm = smem + (size_t)warp * L.total;
   const int V = p.V, n = p.n;
   float* xs = sm + L.xs;
@@ -159,11 +164,12 @@ __global__ void pixel_lm_kernel(Problem p, int warps_per_block) {
   }
 
   const int* org = p.origin + (size_t)b * D;
-  Cluster c{p.cp + (size_t)b * n * p.P, p.fvalid + (size_t)b * n,
-            p.slot_idx, {0.f, 0.f, 0.f}, n, p.P, V, p.iso};
+  Cluster c = make_cluster(p.cp + (size_t)b * n * p.P,
+                           p.fvalid + (size_t)b * n, p.slot_idx, 0.f, 0.f,
+                           0.f, n, p.P, V, p.iso, p.ma, b);
 #pragma unroll
   for (int d = 0; d < D; ++d) c.org[d] = (float)org[d];
-  stage_slots<D>(c, reinterpret_cast<int*>(sm + L.fs), lane);
+  stage_slots<D, Prof>(c, reinterpret_cast<int*>(sm + L.fs), lane);
 
   // The in-mask voxel list, in raster order: the window's R = wz·wy rows
   // are walked rpi rows per warp step (lane = row-in-step · wx + x) when a
@@ -213,13 +219,14 @@ __global__ void pixel_lm_kernel(Problem p, int warps_per_block) {
   const float wc = 1.f / p.norm[b];
   LMOut res;
   if (Streamed) {
-    res = lm_run<D>(c, p.lm, sm, L, lane,
-                    StreamedPixels<D>{idx, pix, cnt, p.sy, p.sz, p.my, p.mx,
-                                      p.wy, p.wx, wc});
+    res = lm_run<D, Prof, Pose>(
+        c, p.lm, sm, L, lane,
+        StreamedPixels<D>{idx, pix, cnt, p.sy, p.sz, p.my, p.mx, p.wy, p.wx,
+                          wc});
   } else {
-    res = lm_run<D>(c, p.lm, sm, L, lane,
-                    ResidentPixels<D>{idx, val, cnt, p.sy, p.sz, p.my, p.mx,
-                                      wc});
+    res = lm_run<D, Prof, Pose>(
+        c, p.lm, sm, L, lane,
+        ResidentPixels<D>{idx, val, cnt, p.sy, p.sz, p.my, p.mx, wc});
   }
 
   if (lane < V) p.x_out[(size_t)b * V + lane] = xs[lane];
@@ -231,18 +238,13 @@ __global__ void pixel_lm_kernel(Problem p, int warps_per_block) {
   }
 }
 
-int bits_for(int w) {  // bits that hold 0..w-1
-  int k = 0;
-  while ((1 << k) < w) ++k;
-  return k;
-}
-
 // Warps per block (up to 4, as many as the device's opt-in shared memory
 // holds) and dynamic shared memory of a launch; raises the kernel's
 // dynamic shared-memory limit when it passes 48 KB.
-template <int D, bool Streamed>
+template <int D, bool Streamed, int Prof, int Pose>
 cudaError_t launch_config(int npx, int* wpb, size_t* smem) {
-  const size_t warp_bytes = sizeof(float) * (size_t)warp_layout<D>(npx, Streamed).total;
+  const size_t warp_bytes =
+      sizeof(float) * (size_t)warp_layout<D, Prof, Pose>(npx, Streamed).total;
   int optin = 0, dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -253,60 +255,105 @@ cudaError_t launch_config(int npx, int* wpb, size_t* smem) {
   if (*wpb < 1) return cudaErrorInvalidValue;
   *smem = warp_bytes * *wpb;
   if (*smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(pixel_lm_kernel<D, Streamed>,
+    e = cudaFuncSetAttribute(pixel_lm_kernel<D, Streamed, Prof, Pose>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
-template <int D, bool Streamed>
-int launch(Problem p, cudaStream_t stream) {
-  int wpb = 0;
+// One instantiation's launch, occupancy and shared memory (op 0, 1, 2).
+template <int D, bool Streamed, int Prof, int Pose>
+int run(int op, Problem* p, cudaStream_t stream, int npx, int* out) {
+  if (op == 2) {
+    *out = warp_layout<D, Prof, Pose>(npx, Streamed).total;
+    return 0;
+  }
+  int wpb = 0, blocks = 0;
   size_t smem = 0;
-  const cudaError_t e = launch_config<D, Streamed>(p.wz * p.wy * p.wx, &wpb, &smem);
+  cudaError_t e = launch_config<D, Streamed, Prof, Pose>(npx, &wpb, &smem);
+  if (op == 1) {  // resident warps per SM (0: one warp does not fit)
+    *out = 0;
+    if (e == cudaErrorInvalidValue) return 0;
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, pixel_lm_kernel<D, Streamed, Prof, Pose>, 32 * wpb, smem);
+    *out = blocks * wpb;
+    return (int)e;
+  }
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (p.B + wpb - 1) / wpb;
-  pixel_lm_kernel<D, Streamed><<<blocks, 32 * wpb, smem, stream>>>(p, wpb);
+  const int grid = (p->B + wpb - 1) / wpb;
+  pixel_lm_kernel<D, Streamed, Prof, Pose><<<grid, 32 * wpb, smem, stream>>>(*p, wpb);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool Streamed>
-int occupancy(int npx, int* warps_per_sm) {
-  int wpb = 0, blocks = 0;
-  size_t smem = 0;
-  *warps_per_sm = 0;
-  cudaError_t e = launch_config<D, Streamed>(npx, &wpb, &smem);
-  if (e == cudaErrorInvalidValue) return 0;  // one warp's layout does not fit
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, pixel_lm_kernel<D, Streamed>, 32 * wpb, smem);
-  *warps_per_sm = blocks * wpb;
-  return (int)e;
+template <int D, bool Streamed, int Pose>
+int run_prof(int prof, int op, Problem* p, cudaStream_t s, int npx, int* out) {
+  switch (prof) {
+    case kGauss: return run<D, Streamed, kGauss, Pose>(op, p, s, npx, out);
+    case kRing: return run<D, Streamed, kRing, Pose>(op, p, s, npx, out);
+    case kHat: return run<D, Streamed, kHat, Pose>(op, p, s, npx, out);
+    case kDisc: return run<D, Streamed, kDisc, Pose>(op, p, s, npx, out);
+    case kInvSeries: return run<D, Streamed, kInvSeries, Pose>(op, p, s, npx, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool Streamed>
+int run_pose(int D, int prof, int pose, int op, Problem* p, cudaStream_t s,
+             int npx, int* out) {
+  if (D == 2 && pose == kNoPose)
+    return run_prof<2, Streamed, kNoPose>(prof, op, p, s, npx, out);
+  if (D == 3 && pose == kNoPose)
+    return run_prof<3, Streamed, kNoPose>(prof, op, p, s, npx, out);
+  if (D == 3 && pose == kAxis3D)
+    return run_prof<3, Streamed, kAxis3D>(prof, op, p, s, npx, out);
+  if (D == 3 && pose == kRotvec3D)
+    return run_prof<3, Streamed, kRotvec3D>(prof, op, p, s, npx, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(int D, int streamed, int prof, int pose, int op, Problem* p,
+             cudaStream_t s, int npx, int* out) {
+  return streamed ? run_pose<true>(D, prof, pose, op, p, s, npx, out)
+                  : run_pose<false>(D, prof, pose, op, p, s, npx, out);
+}
+
+int bits_for(int w) {  // bits that hold 0..w-1
+  int k = 0;
+  while ((1 << k) < w) ++k;
+  return k;
 }
 
 }  // namespace
 
-// Per-warp shared memory of a mode, in 4-byte words.
-extern "C" int pixel_lm_smem_words(int D, int npix, int streamed) {
-  return D == 3 ? warp_layout<3>(npix, streamed != 0).total
-                : warp_layout<2>(npix, streamed != 0).total;
+// Per-warp shared memory of an instantiation, in 4-byte words (−1: there
+// is no such instantiation).
+extern "C" int pixel_lm_smem_words(int D, int npix, int streamed, int prof,
+                                   int pose) {
+  int words = -1;
+  if (dispatch(D, streamed, prof, pose, 2, nullptr, nullptr, npix, &words) != 0)
+    return -1;
+  return words;
 }
 
 // Resident warps per SM of a launch, as the occupancy calculator gives
 // them (0 when one warp's shared memory exceeds a block's); returns the
 // CUDA error code (0 = cudaSuccess).
-extern "C" int pixel_lm_occupancy(int D, int npix, int streamed, int* warps_per_sm) {
-  if (D == 3) return streamed ? occupancy<3, true>(npix, warps_per_sm)
-                              : occupancy<3, false>(npix, warps_per_sm);
-  return streamed ? occupancy<2, true>(npix, warps_per_sm)
-                  : occupancy<2, false>(npix, warps_per_sm);
+extern "C" int pixel_lm_occupancy(int D, int npix, int streamed, int prof,
+                                  int pose, int* warps_per_sm) {
+  return dispatch(D, streamed, prof, pose, 1, nullptr, nullptr, npix,
+                  warps_per_sm);
 }
 
 // Launches the solve on `stream`.  window = (wz, wy, wx) with wz = 1 in 2D;
-// inv_r = 1/radius per window axis.  Returns the cudaGetLastError() code of
-// the launch (0 = cudaSuccess), or cudaErrorInvalidValue for a problem the
-// kernel does not take.
+// inv_r = 1/radius per window axis; prof / pose: the profile tag and pose
+// kind (lm_core.cuh; a pose needs D = 3); nx: extras per feature; for a
+// rigid bucket (V = the compact length) fit_dist, circ, rc_fixed =
+// circ·distance, base = the rotation's base vertices [n][3] and xn [B] =
+// the inert position slots' max |x|.  Returns the cudaGetLastError() code
+// of the launch (0 = cudaSuccess), or cudaErrorInvalidValue for a problem
+// the kernel does not take.
 extern "C" int pixel_lm_launch(
     const float* pixels, const int* origin, const float* x0,
     const float* cp, const float* pos_at, const float* norm,
@@ -316,12 +363,20 @@ extern "C" int pixel_lm_launch(
     float inv_rz, float inv_ry, float inv_rx, int streamed,
     int max_iter, float ftol, float xtol, float lam0, float lam_up,
     float lam_down, float lam_max, float plateau,
+    int prof, int nx, int pose, int fit_dist, float circ, float rc_fixed,
+    const float* base, const float* xn,
     float* x_out, float* cost, int* n_iter, int* converged, float* npix,
     void* stream) {
+  const int n_ex = prof == kInvSeries ? nx : (prof == kRing || prof == kHat);
+  const int q = pose == kAxis3D ? PoseDim<kAxis3D>::Q
+              : pose == kRotvec3D ? PoseDim<kRotvec3D>::Q : 0;
   if ((D != 2 && D != 3) || V < 1 || V > kMaxSlots || n < 1 ||
-      n > kMaxFeatures || P != 2 + D + (iso ? 1 : D) || wz < 1 || wy < 1 ||
-      wx < 1 || (D == 2 && wz != 1) || B < 0 ||
-      (streamed && scratch == nullptr)) {
+      n > kMaxFeatures || P != 2 + D + (iso ? 1 : D) + n_ex || nx != n_ex ||
+      nx > kMaxSeries || wz < 1 || wy < 1 || wx < 1 ||
+      (D == 2 && wz != 1) || B < 0 || (streamed && scratch == nullptr) ||
+      (pose != kNoPose && (base == nullptr && pose == kRotvec3D)) ||
+      (pose != kNoPose && (xn == nullptr || V < q + fit_dist ||
+                           (pose == kAxis3D && n != 2)))) {
     return (int)cudaErrorInvalidValue;
   }
   const int bx = bits_for(wx), by = bits_for(wy), bz = bits_for(wz);
@@ -329,16 +384,17 @@ extern "C" int pixel_lm_launch(
   if (B == 0) return 0;
   const LMConf lm{lo, hi, max_iter, ftol, xtol, lam0, lam_up, lam_down,
                   lam_max, plateau};
+  const ModelArgs ma{nx, base, circ, rc_fixed, fit_dist, xn};
   Problem p{pixels, origin, x0, cp, pos_at, norm, valid, fvalid, slot_idx,
             scratch, B, n, P, V, iso, wz, wy, wx, bx, bx + by,
-            (1 << by) - 1, (1 << bx) - 1, {0.f, 0.f, 0.f}, lm,
+            (1 << by) - 1, (1 << bx) - 1, {0.f, 0.f, 0.f}, lm, ma,
             x_out, cost, n_iter, converged, npix};
   if (D == 3) {
     p.inv_r[0] = inv_rz; p.inv_r[1] = inv_ry; p.inv_r[2] = inv_rx;
   } else {
     p.inv_r[0] = inv_ry; p.inv_r[1] = inv_rx;
   }
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D == 3) return streamed ? launch<3, true>(p, s) : launch<3, false>(p, s);
-  return streamed ? launch<2, true>(p, s) : launch<2, false>(p, s);
+  int unused = 0;
+  return dispatch(D, streamed, prof, pose, 0, &p, (cudaStream_t)stream,
+                  wz * wy * wx, &unused);
 }

@@ -10,18 +10,24 @@ example arguments on ``device``.  ``example_batch`` is a numpy copy of
 ``benchmarks/suite.py``: anisotropic 3D Gaussian dimers in z-stacks,
 9×13×13 windows, radius (3.0, 4.5, 4.5), every size fitted per feature
 (V = 14); ``example_batch_3d`` draws its scene as the suite does.
+
+``entry_rigid(config, device)`` is the same for the rigid cells: config
+3's 2D dimers and trimers, config 3b's 3D dimers and config 3c's 3D
+tetramers (``RIGID_CONFIGS``); ``example_batch_rigid`` draws them.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from . import artificial
+from .constraints import dimer, positions_to_pose, tetramer, trimer
 from .interop import from_reference
 from .models.registry import get_model
 from .refine import _bucket_solver
 
-__all__ = ["example_batch", "example_batch_3d", "entry", "entry_3d",
-           "WINDOW", "RADIUS", "WINDOW_3D", "RADIUS_3D", "MODES_3D"]
+__all__ = ["example_batch", "example_batch_3d", "example_batch_rigid",
+           "entry", "entry_3d", "entry_rigid", "WINDOW", "RADIUS",
+           "WINDOW_3D", "RADIUS_3D", "MODES_3D", "RIGID_CONFIGS"]
 
 WINDOW = (13, 13)
 RADIUS = (4.5, 4.5)
@@ -125,6 +131,95 @@ def example_batch_3d(B=2048, shape=(64, 192, 192), pitch=(16, 24, 24),
     valid = np.ones(B, bool)
     out = (frames, fidx, params0, pose0, valid)
     return out + (truth,) if with_truth else out
+
+
+def _rigid_configs():
+    """The rigid cells: benchmarks/suite.py::config3 (2D dimers and
+    trimers) and config3c (3D tetramers), and config 3b, which the
+    reference names only (benchmarks/RESULTS.md:40, "3D rigid dimers
+    (11×13×13 voxels, axis pose in-kernel, B=2048)"): drawn like config 3c
+    with n = 2, ``dimer(5.0, 3)`` and size 2.0 (tests/test_pallas_lm.py's
+    3D dimer), radius (5, 6, 6)."""
+    two_d = dict(ndim=2, B=4096, shape=(256, 256), pitch=(24, 24),
+                 size=2.0, jitter=0.3, radius=(4.5, 4.5))
+    three_d = dict(ndim=3, B=2048, shape=(64, 192, 192), pitch=(16, 24, 24),
+                   jitter=0.2)
+    return {
+        "3-dimer": dict(two_d, con=dimer(5.0, 2), window=(15, 15), seed=3),
+        "3-trimer": dict(two_d, con=trimer(5.0, 2), window=(17, 17),
+                         seed=3),
+        "3b": dict(three_d, con=dimer(5.0, 3), window=(11, 13, 13),
+                   radius=(5.0, 6.0, 6.0), size=2.0, seed=13),
+        "3c": dict(three_d, con=tetramer(3.2), window=(16, 16, 16),
+                   radius=(3.5, 3.5, 3.5), size=1.5, seed=11),
+    }
+
+
+RIGID_CONFIGS = tuple(_rigid_configs())
+
+
+def example_batch_rigid(config, B=None, seed=None, with_truth=False):
+    """A rigid cell's scene (``RIGID_CONFIGS``), drawn as
+    benchmarks/suite.py draws configs 3 and 3c: one isotropic Gaussian
+    cluster (separation = the constraint's distance, signal 150, a random
+    angle) per pitch cell, centers jittered by ±1, starts perturbed by
+    ±0.3 px (2D) or ±0.2 px (3D).  The suite draws its trimers from the
+    rng its dimers leave; here each cell starts from its own seed.
+    Returns (frames, frame_idx, params0, pose0 from ``positions_to_pose``,
+    valid), plus the true positions [B, n, D] when ``with_truth``."""
+    c = _rigid_configs()[config]
+    con, D = c["con"], c["ndim"]
+    n = con.cluster_size
+    B = c["B"] if B is None else B
+    rng = np.random.default_rng(c["seed"] if seed is None else seed)
+    shape, pitch = c["shape"], c["pitch"]
+    per = tuple(s // p for s, p in zip(shape, pitch))
+    per_frame = int(np.prod(per))
+    T = -(-B // per_frame)
+    P = 3 + D   # [bg, signal, pos..., size]
+    frames = np.zeros((T,) + tuple(shape), np.float32)
+    params0 = np.zeros((B, n, P), np.float32)
+    truth = np.zeros((B, n, D))
+    fidx = np.zeros(B, np.int32)
+    for b in range(B):
+        t, cell = b // per_frame, b % per_frame
+        idx = np.unravel_index(cell, per)
+        center = np.array([i * p + p / 2 for i, p in zip(idx, pitch)],
+                          float) + rng.uniform(-1, 1, D)
+        true = artificial.draw_cluster(
+            frames[t], center, size=c["size"], separation=con.dist, n=n,
+            signal=150.0, angle=rng.uniform(0, np.pi))
+        truth[b] = true
+        params0[b, :, 1] = 150.0
+        params0[b, :, 2:2 + D] = true + rng.uniform(-c["jitter"],
+                                                    c["jitter"], true.shape)
+        params0[b, :, 2 + D] = c["size"]
+        fidx[b] = t
+    pose0 = positions_to_pose(params0[:, :, 2:2 + D], con).astype(np.float32)
+    out = (frames, fidx, params0, pose0, np.ones(B, bool))
+    return out + (truth,) if with_truth else out
+
+
+def entry_rigid(config, device, batch=None, lm_backend="auto",
+                gather_backend="auto", streaming=None, **batch_kwargs):
+    """(solve, example_args) for a rigid cell (``RIGID_CONFIGS``): the
+    constrained bucket solver of suite.py's configuration (isotropic
+    gauss, size const, refit-on-shift up to 10 rounds, up to 60 LM
+    iterations) and ``batch`` (the five arrays of ``example_batch_rigid``,
+    or ``example_batch_rigid(config, **batch_kwargs)``) as tensors on
+    ``device``.  ``lm_backend``, ``gather_backend`` and ``streaming`` as
+    ``_bucket_solver``'s."""
+    c = _rigid_configs()[config]
+    solver, _ = _bucket_solver(
+        get_model("gauss"), c["ndim"], True, c["con"].cluster_size, (),
+        c["window"], c["radius"], (), c["con"], 1e5, 10, 1.0, 60, 1.49e-8,
+        1.49e-8, False, lm_backend, gather_backend, streaming,
+    )
+    if batch is None:
+        batch = example_batch_rigid(config, **batch_kwargs)
+    state = from_reference(*batch[:5], device=device)
+    return solver, (state.frames, state.frame_idx, state.params0,
+                    state.pose0, state.valid)
 
 
 def entry_3d(device, batch=None, lm_backend="auto", gather_backend="auto",

@@ -2,8 +2,10 @@
 
 The reference hands its bucket solver numpy-convertible arrays (numpy or
 ``jax.Array``); ``from_reference`` turns them into the port's tensors on
-an explicit device, with the dtypes the port's solvers take.  It needs
-no JAX: ``np.asarray`` reads a ``jax.Array`` through the array protocol.
+an explicit device, with the dtypes the port's solvers take, and
+``constraint_from_reference`` turns the reference's rigid ``Constraint``
+into the port's.  Neither needs JAX: ``np.asarray`` reads a ``jax.Array``
+through the array protocol, and a constraint is read by its fields.
 """
 from __future__ import annotations
 
@@ -12,9 +14,31 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .constraints import Constraint
 from .models.packing import MODE_CODES
 
-__all__ = ["ReferenceState", "from_reference"]
+__all__ = ["ReferenceState", "constraint_from_reference", "from_reference"]
+
+
+def constraint_from_reference(con) -> Constraint:
+    """The port's ``Constraint`` with the fields of a reference one (kind,
+    cluster size, ndim, dist, dist_mode, name).  A generic constraint
+    carries a JAX ``fun`` the port cannot call: build the port's from the
+    reference-style dict instead."""
+    if con.kind != "rigid":
+        raise ValueError(
+            f"constraint {con.name!r} is {con.kind!r}: its fun is a JAX "
+            "function; pass the {'type': 'eq', 'fun': ...} dict with a "
+            "torch fun to the port instead"
+        )
+    return Constraint(
+        kind=con.kind,
+        cluster_size=int(con.cluster_size),
+        ndim=int(con.ndim),
+        dist=None if con.dist is None else float(con.dist),
+        dist_mode=con.dist_mode,
+        name=con.name,
+    )
 
 
 class ReferenceState(NamedTuple):

@@ -28,9 +28,13 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # contraction alone moved it by up to 5.7e-3 relative on an H100 (16,384
 # dimers), against 1.2e-4 without it, for ~14% more kernel time.  No
 # --use_fast_math: expf accuracy moves accept decisions.
+# -split-compile=0: optimize a file's kernels in parallel on every host
+# core; pixel_lm.cu instantiates 40 kernels (profile × pose × mode), which
+# one thread compiled in 76 s on the H100's host.
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 # name -> (ctypes.CDLL, seconds spent building, nvcc's report); the loaded

@@ -1,8 +1,8 @@
 """refine_leastsq — the core fitting pipeline, in PyTorch.
 
-Counterpart of ``clustertracking_tpu/refine.py`` for unconstrained fits.
-Clusters are bucketed by cluster size; each bucket becomes one batched
-solve that fits every cluster of the bucket together:
+Counterpart of ``clustertracking_tpu/refine.py``.  Clusters are bucketed
+by cluster size; each bucket becomes one batched solve that fits every
+cluster of the bucket together:
 
 - window gather, fit-region mask, parameter packing, LM solve and the
   refit-on-shift outer loop (``max_iter``/``max_shift``) all run on the
@@ -11,18 +11,22 @@ solve that fits every cluster of the bucket together:
   ``csrc/fused_lm_2d.cu``), 'gathered' (3D and large 2D windows,
   ``csrc/window_gather.cu`` then ``csrc/pixel_lm.cu``, once per refit
   round) or none (``ops/lm.py::lm_solve``);
+- constrained buckets (``constraints=``) fit a rigid pose exactly
+  (``ops/rigid.py``; on CUDA through the rigid instantiations of the same
+  kernels) or, for reference-style dicts, the free positions with
+  ``sqrt(residual_factor)``-weighted penalty rows (``lm_solve``);
 - fits whose RMS residual (normalized by the cluster's signal scale)
   exceeds ``max_rms_dev`` are rejected: original values kept, ``cost``
   NaN;
 - ``compute_error=True`` adds ``<name>_std`` columns from the
-  Gauss–Newton covariance;
+  Gauss–Newton covariance (through the pose map for rigid fits);
 - clusters bigger than ``max_cluster_size`` spill to the host scipy path
   (hostref.py).
 
-Not ported yet, and refused with ``NotImplementedError``: ``constraints=``
-(ROADMAP queue 1 item 7), 'global' parameter modes (queue 1 item 8) and
-``mesh=`` (queue 1 item 13).  pandas is imported by the DataFrame entry
-points only.
+Not ported yet, and refused with ``NotImplementedError``: 'global'
+parameter modes and globally tied rigid distances (``dimer_global()``'s
+default; ROADMAP queue 1 item 8) and ``mesh=`` (queue 1 item 13).  pandas
+is imported by the DataFrame entry points only.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ import numpy as np
 import torch
 
 from . import diagnostics
+from .constraints import (
+    circumradius_factor, pose_dim, positions_to_pose, wrap_constraint_dicts)
 from .find import find_clusters
 from .models.packing import build_layout
 from .models.registry import ModelSpec, get_model
@@ -43,6 +49,7 @@ from .ops.gather import gather_stack, origins_for, radius_mask
 from .ops.lm import lm_solve
 from .ops.pixel_lm import pixel_lm
 from .ops.residual import make_model_fns
+from .ops.rigid import make_constrained_fns
 from .ops.window_gather import window_gather
 from .utils import default_size_columns, guess_pos_columns, validate_tuple
 
@@ -69,31 +76,50 @@ def _route_taken(lm_backend, route, device):
     return "torch"
 
 
-def _slot_bounds(layout, window_shape, frame_shape, bounds_key=()):
-    """Per-slot [V] f32 (lo, hi): the user's ``bounds`` (name, lo, hi)
-    tuples plus the implicit ones — positions stay inside the frame (a
-    lane whose gradient vanishes cannot random-walk away) and sizes stay
-    in [0.05, largest window extent] (a size through zero makes
-    r² = 0/0)."""
+def _slot_bounds(layout, window_shape, frame_shape, bounds_key=(),
+                 constraint=None):
+    """Per-slot f32 (lo, hi) of the optimizer vector: the user's
+    ``bounds`` (name, lo, hi) tuples plus the implicit ones — positions
+    stay inside the frame (a lane whose gradient vanishes cannot
+    random-walk away) and sizes stay in [0.05, largest window extent] (a
+    size through zero makes r² = 0/0).
+
+    A rigid ``constraint`` prepends its Qt pose slots: the center stays in
+    the frame, a fitted distance in [1e-3, (min window − 1)/(2·circ)] (the
+    vertices stay inside the window); the inert position slots are not
+    bounded, and the other slots' bounds shift by Qt.  (The reference
+    bounds a rigid bucket's sizes at the unshifted index, refine.py:415;
+    ROADMAP queue 3.)"""
+    rigid = constraint is not None and constraint.kind == "rigid"
+    Qt = pose_dim(constraint) + int(constraint.fit_dist) if rigid else 0
     V = layout.n_slots
-    lo = np.full(V, -np.inf, np.float32)
-    hi = np.full(V, np.inf, np.float32)
+    lo = np.full(Qt + V, -np.inf, np.float32)
+    hi = np.full(Qt + V, np.inf, np.float32)
     for name, b_lo, b_hi in bounds_key:
         p = layout.param_names.index(name)
         for s in layout.slot_idx[:, p]:
             if s >= 0:
-                lo[s] = b_lo
-                hi[s] = b_hi
-    for d, p in enumerate(layout.pos_param_idx):
-        for s in layout.slot_idx[:, p]:
-            if s >= 0:
-                lo[s] = 0.0
-                hi[s] = float(frame_shape[d] - 1)
+                lo[Qt + s] = b_lo
+                hi[Qt + s] = b_hi
+    if rigid:
+        for d in range(layout.ndim):
+            lo[d], hi[d] = 0.0, float(frame_shape[d] - 1)
+        if constraint.fit_dist:
+            circ = circumradius_factor(layout.n_features, layout.ndim)
+            lo[Qt - 1] = max(lo[Qt - 1], 1e-3)
+            hi[Qt - 1] = min(hi[Qt - 1],
+                             (min(window_shape) - 1) / (2.0 * circ))
+    else:
+        for d, p in enumerate(layout.pos_param_idx):
+            for s in layout.slot_idx[:, p]:
+                if s >= 0:
+                    lo[s] = 0.0
+                    hi[s] = float(frame_shape[d] - 1)
     for p in layout.size_param_idx:
         for s in layout.slot_idx[:, p]:
             if s >= 0:
-                lo[s] = max(lo[s], 0.05)
-                hi[s] = min(hi[s], float(max(window_shape)))
+                lo[Qt + s] = max(lo[Qt + s], 0.05)
+                hi[Qt + s] = min(hi[Qt + s], float(max(window_shape)))
     return lo, hi
 
 
@@ -122,10 +148,13 @@ def _bucket_solver(
     """Build the solver for one bucket configuration.
 
     Returns ``(solve, layout)``; ``solve(frames [T, *S] f32,
-    frame_idx [B] i32, params0 [B, n, P] f32, pose0 [B, 0], valid [B] bool,
+    frame_idx [B] i32, params0 [B, n, P] f32, pose0 [B, Qt], valid [B] bool,
     fvalid [B, n] f32 | None) -> (params, rms, converged, iters, std)``
-    runs on the device of ``frames``.  ``residual_factor`` and ``pose0``
-    only matter for constrained buckets, which are not ported yet.
+    runs on the device of ``frames``.  ``pose0`` is [B, 0] for an
+    unconstrained or generic bucket and the initial pose
+    (``positions_to_pose``) for a rigid one; constrained buckets are
+    exact-size and ignore ``fvalid``.  ``residual_factor`` weighs a
+    generic constraint's penalty rows (by its square root).
 
     ``lm_backend`` as ``refine_leastsq``'s.  ``gather_backend``: 'auto'
     gathers windows with ``window_gather`` (the CUDA kernel on CUDA,
@@ -134,12 +163,6 @@ def _bucket_solver(
     by occupancy; True / False force streamed / resident), as the
     reference's ``make_pallas_lm`` takes it.
     """
-    del residual_factor
-    if constraint is not None:
-        raise NotImplementedError(
-            "constrained buckets are not ported yet (ROADMAP queue 1 "
-            "item 7)"
-        )
     if lm_backend not in _LM_BACKENDS:
         raise ValueError(f"Unknown lm_backend {lm_backend!r}; "
                          f"one of {_LM_BACKENDS}")
@@ -153,41 +176,59 @@ def _bucket_solver(
             "'global' parameter modes need lm_solve_global, not ported "
             "yet (ROADMAP queue 1 item 8)"
         )
+    _refuse_global_distance(constraint)
     pos_idx = list(layout.pos_param_idx)
-    V = layout.n_slots
-    route = kernel_route(model, layout, False, None, window_shape)
+    route = kernel_route(model, layout, False, constraint, window_shape)
     if lm_backend == "kernel" and route is None:
         raise ValueError(
             "lm_backend='kernel' unsupported for this configuration "
-            f"(V={V} slots, window {window_shape})"
+            f"(V={layout.n_slots} slots, window {window_shape}, "
+            f"constraint {getattr(constraint, 'name', None)!r})"
         )
 
     def solve(frames, frame_idx, params0, pose0, valid, fvalid=None):
-        del pose0
         device = frames.device
         taken = _route_taken(lm_backend, route, device)
         B = params0.shape[0]
         frame_shape = tuple(frames.shape[1:])
         signal0 = params0[..., layout.signal_param_idx]
         norm = torch.clamp(torch.amax(torch.abs(signal0), dim=1), min=1e-6)
-        vect0 = layout.vect_from_params(params0)
         lo_np, hi_np = _slot_bounds(layout, window_shape, frame_shape,
-                                    bounds_key)
+                                    bounds_key, constraint)
         lo_b = torch.as_tensor(lo_np, device=device)
         hi_b = torch.as_tensor(hi_np, device=device)
-        fns = make_model_fns(model, layout, window_shape, device=device)
+        if constraint is None:
+            fns = make_model_fns(model, layout, window_shape, device=device)
+            residual, residual_jac = fns.residual, fns.residual_jac
+            vect0 = layout.vect_from_params(params0)
+
+            def positions_of(vect):
+                return layout.vect_to_params(vect, params0)[..., pos_idx]
+
+            def params_of(vect):
+                return layout.vect_to_params(vect, params0)
+        else:
+            # constrained buckets are exact-size: no pad features to gate
+            fvalid = None
+            cfns = make_constrained_fns(model, layout, window_shape,
+                                        constraint, residual_factor, device)
+            residual, residual_jac = cfns.residual, cfns.residual_jac
+            vect0 = cfns.vect_of(params0, pose0.to(params0.dtype))
+
+            def positions_of(vect):
+                return cfns.positions_of(vect, params0)
+
+            def params_of(vect):
+                return cfns.params_of(vect, params0)
         fv_extra = () if fvalid is None else (fvalid,)
 
-        def positions_of(vect):
-            return layout.vect_to_params(vect, params0)[..., pos_idx]
-
         def solve_round(vect, need):
-            pos_at = positions_of(vect)
+            pos_at = positions_of(vect).contiguous()
             origin = origins_for(pos_at, window_shape, frame_shape)
             kw = dict(model=model, layout=layout,
                       window_shape=window_shape, lo=lo_np, hi=hi_np,
                       radius=radius, max_iter=lm_max_iter, ftol=ftol,
-                      xtol=xtol)
+                      xtol=xtol, constraint=constraint)
             if taken == "fused":
                 res = fused_lm_2d(vect, params0, frames, frame_idx, pos_at,
                                   origin, norm, need, fvalid, **kw)
@@ -200,7 +241,7 @@ def _bucket_solver(
                 mask = radius_mask(pos_at, origin, window_shape, radius,
                                    fvalid=fvalid)
                 res = lm_solve(
-                    fns.residual, fns.residual_jac, vect,
+                    residual, residual_jac, vect,
                     (params0, pixels, mask, origin, norm) + fv_extra,
                     max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
                     lower=lo_b, upper=hi_b, valid=need,
@@ -240,7 +281,7 @@ def _bucket_solver(
             conv_best = torch.where(improved, res.converged, conv_best)
             need = need & (shift > max_shift)
             vect = res.x
-        params = layout.vect_to_params(vect_best, params0)
+        params = params_of(vect_best)
 
         if not compute_error:
             return (params, rms_best, conv_best, iters,
@@ -249,11 +290,12 @@ def _bucket_solver(
         origin = origins_for(pos, window_shape, frame_shape)
         pixels = gather(frames, frame_idx, origin, window_shape)
         mask = radius_mask(pos, origin, window_shape, radius, fvalid=fvalid)
-        r, J = fns.residual_jac(
+        r, J = residual_jac(
             vect_best, params0, pixels, mask, origin, norm, *fv_extra
         )
         H = torch.einsum("bun,bvn->buv", J, J)
-        eye = torch.eye(V, dtype=H.dtype, device=device)
+        Vc = H.shape[-1]
+        eye = torch.eye(Vc, dtype=H.dtype, device=device)
         # Cholesky-based inverse with a jitter that scales with the
         # diagonal, so a nearly singular H stays positive definite; a lane
         # whose H is still not positive definite gets NaN, as in JAX.
@@ -266,18 +308,44 @@ def _bucket_solver(
         cov = torch.cholesky_inverse(L)
         cov = torch.where((info == 0)[:, None, None], cov, torch.nan)
         npx = torch.clamp(torch.sum(mask, dim=1), min=1.0)
-        dof = torch.clamp(npx - V, min=1.0)
+        dof = torch.clamp(npx - Vc, min=1.0)
         sigma2 = torch.sum(r * r, dim=1) / dof
         var = torch.clamp(
             torch.diagonal(cov, dim1=-2, dim2=-1), min=0.0
         ) * sigma2[:, None]
-        std_params = layout.vect_to_params(
-            torch.sqrt(var), torch.full(params.shape, torch.nan,
-                                        device=device)
-        )
+        std_vect = torch.sqrt(var)
+        nan_params = torch.full(params.shape, torch.nan, device=device)
+        if constraint is None or constraint.kind != "rigid":
+            return (params, rms_best, conv_best, iters,
+                    layout.vect_to_params(std_vect, nan_params))
+        # Delta method: the pose covariance through the pose→positions map
+        # (G = ∂pos/∂vect, per lane) gives per-coordinate position errors;
+        # the other slots map directly.
+        G = torch.func.vmap(torch.func.jacfwd(
+            lambda v: positions_of(v[None])[0]))(vect_best)  # [B, n, D, Vc]
+        var_pos = torch.einsum("bndu,buv,bndv->bnd", G, cov, G) \
+            * sigma2[:, None, None]
+        std_params = layout.vect_to_params(std_vect[:, cfns.Qt:], nan_params)
+        p0 = pos_idx[0]
+        std_params = torch.cat(
+            [std_params[..., :p0], torch.sqrt(torch.clamp(var_pos, min=0.0)),
+             std_params[..., p0 + ndim:]], dim=-1)
         return params, rms_best, conv_best, iters, std_params
 
     return solve, layout
+
+
+def _refuse_global_distance(constraint):
+    """A rigid distance tied across every cluster of the fit needs the
+    cross-lane solve the port does not have yet."""
+    if (constraint is not None and constraint.kind == "rigid"
+            and constraint.fit_dist and constraint.dist_mode == "global"):
+        raise NotImplementedError(
+            f"constraint {constraint.name!r} ties one distance across all "
+            "clusters (dist_mode='global'): that needs lm_solve_global and "
+            "the whole-video joint distance, not ported yet (ROADMAP queue "
+            "1 item 8); dimer_global(mode='cluster') fits one per cluster"
+        )
 
 
 def _pack_results(params, rms, conv, iters, std, compute_error):
@@ -432,21 +500,27 @@ def refine_leastsq(
     ``lm_backend``: 'auto' (on CUDA, each bucket's kernel route:
     ``fused_lm_2d`` for 2D windows, ``window_gather`` then ``pixel_lm``
     for 3D and large 2D ones), 'kernel' (force the kernel route; its plain
-    versions on CPU) or 'torch' (``lm_solve``).
+    versions on CPU) or 'torch' (``lm_solve``).  Dispatches of constrained
+    buckets are tagged with their kind: ``cuda-fused-rigid``,
+    ``cuda-torch-penalty``, ...
+
+    ``constraints``: ``dimer``/``trimer``/``tetramer``/``dimer_global``
+    objects or reference-style ``{'type': 'eq', 'fun': f, 'args': a,
+    'cluster_size': n}`` dicts (``fun`` takes torch positions [n, D]);
+    a constraint built for another ndim raises ``ValueError``.
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (multi-device fits) is not ported yet (ROADMAP queue 1 "
             "item 13)"
         )
-    if constraints:
-        raise NotImplementedError(
-            "constraints= is not ported yet (ROADMAP queue 1 item 7)"
-        )
     device = torch.device(device)
     if pos_columns is None:
         pos_columns = guess_pos_columns(f)
     ndim = len(pos_columns)
+    con_map = wrap_constraint_dicts(constraints, ndim)
+    for con in con_map.values():
+        _refuse_global_distance(con)
     diameter = validate_tuple(diameter, ndim)
     radius = tuple(d / 2.0 for d in diameter)
     if separation is None:
@@ -584,11 +658,14 @@ def refine_leastsq(
             valid & ~np.isfinite(rms)
         ).any():
             _nan_trap_raise(p, rms, model, ndim)
+        con = p["con"]
         route = _route_taken(
             lm_backend,
-            kernel_route(model, p["layout"], False, None, p["wshape"]),
+            kernel_route(model, p["layout"], False, con, p["wshape"]),
             device,
         )
+        kind = "" if con is None else (
+            "-rigid" if con.kind == "rigid" else "-penalty")
         diagnostics.record_batch(
             cluster_size=n,
             n_clusters=int(valid.sum()),
@@ -600,7 +677,7 @@ def refine_leastsq(
             max_lm_iters=int(iters[valid].max()) if valid.any() else 0,
             mean_rms=float(rms[valid].mean()) if valid.any() else 0.0,
             wall_s=p["dispatch_s"] + (time.perf_counter() - t_fetch),
-            backend=f"{device.type}-{route}",
+            backend=f"{device.type}-{route}{kind}",
         )
 
         # vectorized writeback across the whole bucket; pos_mat slots of
@@ -651,12 +728,20 @@ def refine_leastsq(
         # cluster id makes every cluster a contiguous block, so the whole
         # bucket assembles with vectorized numpy.  Oversize clusters keep
         # the true size for the spill path.
+        # Constrained sizes keep exact buckets (a rigid pose needs the true
+        # n), and a laddered bucket id must not collide with a constrained
+        # size: an unconstrained 5-cluster must not inherit a hexamer
+        # constraint by padding into bucket 6.
         csz_all = sub["cluster_size"].to_numpy()
-        bucket_ids = np.array([
-            int(c) if c > max_cluster_size
-            else min(_ladder_size(int(c)), max_cluster_size)
-            for c in csz_all
-        ])
+
+        def _bucket_of(c):
+            c = int(c)
+            if c in con_map or c > max_cluster_size:
+                return c
+            lad = min(_ladder_size(c), max_cluster_size)
+            return c if lad in con_map else lad
+
+        bucket_ids = np.array([_bucket_of(c) for c in csz_all])
         for n, grp in sub.groupby(bucket_ids):
             n = int(n)
             grp = grp.sort_values("cluster", kind="stable")
@@ -738,26 +823,32 @@ def refine_leastsq(
                 wshape = tuple(
                     min(d, s) for d, s in zip(dyn, frame_shape)
                 )
+            con = con_map.get(n)
             solver, layout = _bucket_solver(
                 model, ndim, isotropic, n, param_mode_key, wshape,
-                radius, bounds_key, None, residual_factor,
+                radius, bounds_key, con, residual_factor,
                 max_iter, max_shift, lm_max_iter, ftol, xtol,
                 compute_error, lm_backend,
             )
-            pose0 = torch.zeros((Bpad, 0), dtype=torch.float32,
-                                device=device)
+            if con is not None and con.kind == "rigid":
+                pose0 = positions_to_pose(params0[:, :, 2:2 + ndim], con)
+            else:
+                pose0 = np.zeros((Bpad, 0))
 
             t_dispatch = time.perf_counter()
             with diagnostics.stage(f"fit_bucket_n{n}"):
                 handles = _pack_results(*solver(
                     stack, torch.as_tensor(fidx, device=device),
-                    torch.as_tensor(params0, device=device), pose0,
+                    torch.as_tensor(params0, device=device),
+                    torch.as_tensor(pose0, dtype=torch.float32,
+                                    device=device),
                     torch.as_tensor(valid, device=device),
-                    torch.as_tensor(fval, device=device),
+                    None if con is not None
+                    else torch.as_tensor(fval, device=device),
                 ), compute_error)
             in_flight.append(dict(
                 handles=handles, n=n, B=B, Bpad=Bpad, valid=valid,
-                pos_mat=pos_mat, layout=layout, wshape=wshape,
+                pos_mat=pos_mat, layout=layout, wshape=wshape, con=con,
                 dispatch_s=time.perf_counter() - t_dispatch,
                 # non-finite trap context (diagnostics.debug_nans)
                 params0=params0, cids=cid[starts], tvals=t_arr[starts],

@@ -160,9 +160,16 @@ def test_check_kernel_args_refuses(which, bad, err):
         check_kernel_args(*args, **kw)
 
 
+def _custom_model():
+    """A Lorentzian given as a custom model dict (the gauss parameters)."""
+    return get_model({"name": "lorentz", "params": [],
+                      "fun": lambda r2: 1.0 / (1.0 + r2)})
+
+
 def test_check_kernel_args_refuses_profiles_without_a_kernel():
+    """A custom model is a Python callable no kernel evaluates."""
     args, kw = _kernel_args()
-    kw["model"] = get_model("ring")
+    kw["model"] = _custom_model()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_kernel_args(*args, **kw)
 
@@ -262,7 +269,7 @@ def test_kernel_matches_plain_on_the_card(window):
     np.testing.assert_array_equal(res_k.npix.cpu().numpy(),
                                   res_p.npix.cpu().numpy())
     with pytest.raises(NotImplementedError):
-        fused_lm_2d(*args, **dict(kw, model=get_model("ring")))
+        fused_lm_2d(*args, **dict(kw, model=_custom_model()))
 
 
 @pytest.mark.cuda

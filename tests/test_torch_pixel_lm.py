@@ -219,9 +219,16 @@ def test_check_pixel_lm_args_refuses(which, bad, err):
         check_pixel_lm_args(*args, **kw)
 
 
+def _custom_model():
+    """A Lorentzian given as a custom model dict (the gauss parameters)."""
+    return get_model({"name": "lorentz", "params": [],
+                      "fun": lambda r2: 1.0 / (1.0 + r2)})
+
+
 def test_check_pixel_lm_args_refuses_profiles_without_a_kernel():
+    """A custom model is a Python callable no kernel evaluates."""
     args, kw = _checked_args()
-    kw["model"] = get_model("ring")
+    kw["model"] = _custom_model()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 1"):
         check_pixel_lm_args(*args, **kw)
 
@@ -278,7 +285,7 @@ def test_kernel_matches_plain_on_the_card(streaming):
     _agree(res_k, res_p, [2, 3, 4, 5, 6, 7])
     assert (res_k.cost.cpu().numpy()[~valid] == 0).all()
     with pytest.raises(NotImplementedError):
-        pixel_lm(*args, **dict(kw, model=get_model("ring")))
+        pixel_lm(*args, **dict(kw, model=_custom_model()))
 
 
 @pytest.mark.cuda

@@ -363,7 +363,7 @@ def test_spill_profile_of_a_custom_model_takes_numpy():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(constraints=ct.dimer(5.0, ndim=2)), "item 7"),
+    (dict(constraints=ctt.dimer_global(ndim=2)), "item 8"),
     (dict(mesh=object()), "item 13"),
     (dict(param_mode={"size": "global"}), "item 8"),
     (dict(backend_find="device"), "item 6"),
