@@ -2,7 +2,13 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --gauss-kernels DIR   # gauss kernels of DIR's port
+    python3 chip_smoke.py --gauss-kernels DIR [--save FILE]
+    python3 chip_smoke.py --compare-saved FILE_A FILE_B
+
+``--gauss-kernels`` times the gauss LM kernels of the port found under DIR
+(this checkout or another commit's) at configs 1, 4, 3 (dimers) and 3c;
+``--save`` keeps their per-lane results, and ``--compare-saved`` gives the
+share of lanes on which two such files agree bit for bit.
 
 Drives the port (``clustertracking_tpu_torch``; no JAX) through its main
 paths, the bucketed cluster fit, at the reference's own sizes: 16,384
@@ -16,12 +22,17 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
               limit as nvidia-smi reports them;
 2. build    — build csrc/fused_lm_2d.cu, window_gather.cu and pixel_lm.cu
               (one nvcc each, sm_90a, started together) and time them;
+              each instantiation's registers, the warps per SM they allow,
+              and any spill;
 3. kernel   — one fused_lm_2d launch against fused_lm_2d_reference on the
-              same CUDA tensors, held to the stated tolerances, and timed;
+              same CUDA tensors, held to the stated tolerances, and timed
+              beside its bound;
 4. main     — the entry() bucket solver through the full refit-on-shift
               loop; the kernel's launch count, rms and position accuracy;
 5. rates    — bucket-solver clusters/s with the kernel and with the plain
-              version (bench.py's method), and the serial scipy rate;
+              version (bench.py's method), and the serial scipy rate; then
+              (profile) torch.profiler over the same solver: the kernel
+              against the rest of a solve, and the device's idle share;
 6. refine   — refine_leastsq on the same scene as a 32,768-row DataFrame
               (only where pandas imports);
 7. kernel3d — config 4's first-round inputs: window_gather against
@@ -30,9 +41,8 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
               then both modes against the plain version on the same scene
               with noise, where cost is compared on every lane;
 8. main3d   — the entry_3d() bucket solver (the gathered route), with
-              pixel_lm's mode picked by occupancy (streamed on an H100)
-              and with resident forced; launch counts, rms and position
-              accuracy;
+              pixel_lm's mode picked by occupancy and with each mode
+              forced; per-mode launch counts, rms and position accuracy;
 9. rates3d  — config 4 clusters/s, gathered route and plain route at
               B=2,048, gathered route at B=16,384 with the kernels'
               occupancy;
@@ -210,14 +220,17 @@ def phase_build():
         nvcc_s, report = _build.build_log(name)
         # registers by instantiation: its template arguments (D, streamed,
         # profile, pose), in the order nvcc reports them
+        # (D, streamed, profile, pose, slot ceiling; fused_lm_2d: profile,
+        # pose, slot ceiling) = registers/warps per SM that they allow
+        entries = _ptxas_entries(report)
+        wpb = 8 if name == "window_gather" else 1   # warps per block
         regs = " ".join(
-            ",".join(re.findall(r"L[ib](\d+)", e.split("_kernel", 1)[1]
-                                .split("EEEv")[0])) + f"={r}"
-            for e, r in _ptxas_registers(report))
-        spills = [line.strip() for line in report.splitlines()
-                  if "spill" in line and " 0 bytes spill stores" not in line]
+            ",".join(_template_args(e))
+            + f"={r}/{_warps_by_registers(r, wpb)}" for e, r, _ in entries)
+        spills = [f"{','.join(_template_args(e))}: {b} bytes"
+                  for e, _, b in entries if b]
         print(f"[build] {name}: nvcc {nvcc_s:.1f} s, load {wall:.1f} s; "
-              f"registers {regs or 'cached build'}; spilling: "
+              f"registers/warps per SM {regs or 'cached build'}; spilling: "
               f"{spills or 'none'}", flush=True)
 
 
@@ -299,7 +312,8 @@ def phase_kernel(batch, device, smi):
     check(conv_eq >= AGREE_FRAC, "kernel converged flags disagree")
     check(npix_eq >= AGREE_FRAC, "kernel npix disagrees")
     bound = _lm_bound(res_k, args, kw)
-    print(f"[kernel] {smi}: fused_lm_2d bound {bound['bound_ms']:.4f} ms "
+    print(f"[kernel] {smi}: fused_lm_2d bound {bound['bound_ms']:.4f} ms, "
+          f"time over bound {ms / bound['bound_ms']:.1f}x "
           f"({bound['bound_by']}; mean in-mask npix "
           f"{float(res_k.npix.mean()):.2f}, mean LM iters "
           f"{float(res_k.n_iter.float().mean()):.2f})", flush=True)
@@ -607,7 +621,8 @@ def phase_kernel3d(batch, device, smi):
     bounds = {m: _lm_bound(out[m]["res"], args, kw) for m in out}
     print(f"[kernel3d] {smi}: bounds — window_gather "
           f"{_bound(g_bytes, 0)['bound_ms']:.4f} ms (bytes), pixel_lm "
-          + ", ".join(f"{m} {b['bound_ms']:.4f} ms ({b['bound_by']})"
+          + ", ".join(f"{m} {b['bound_ms']:.4f} ms ({b['bound_by']}; time "
+                      f"over bound {out[m]['ms'] / b['bound_ms']:.1f}x)"
                       for m, b in bounds.items()), flush=True)
     return dict(
         gather=dict(max_abs_err=gather_err, ms=g_ms, plain_ms=gp_ms,
@@ -641,16 +656,17 @@ def _counts():
 
 
 def phase_main3d(batch, device, smi):
-    """Config 4 through the bucket solver twice: pixel_lm's mode as
-    streaming=None picks it (by occupancy), then resident forced
-    (streaming=False, the reference's make_pallas_lm option).  Returns
-    the launch counts of both runs, summed."""
+    """Config 4 through the bucket solver three times: pixel_lm's mode as
+    streaming=None picks it (by occupancy), then each mode forced
+    (streaming=True and False, the reference's make_pallas_lm option).
+    Returns the launch counts of the three runs, summed: the forced runs
+    give each mode's own count at config 4's shape."""
     import torch
 
     from clustertracking_tpu_torch.entry import entry_3d
 
     total, outs = {}, {}
-    for streaming in (None, False):
+    for streaming in (None, True, False):
         solve, args = entry_3d(device, batch=batch, streaming=streaming)
         torch.cuda.synchronize()
         _reset_counts()
@@ -672,16 +688,21 @@ def phase_main3d(batch, device, smi):
               "the 3D path did not launch window_gather")
         check(n["resident"] + n["streamed"] > 0,
               "the 3D path did not launch pixel_lm")
-        check(streaming is None or n["streamed"] == 0,
-              "streaming=False launched the streamed mode")
+        if streaming is not None:
+            forced, other = (("streamed", "resident") if streaming
+                             else ("resident", "streamed"))
+            check(n[forced] > 0 and n[other] == 0,
+                  f"streaming={streaming} launched {n}")
         check(n["fused_lm_2d"] == 0, "the 3D path launched fused_lm_2d")
         check(np.isfinite(rms).all(), "non-finite rms")
         check(rms.mean() < 0.2, f"mean rms {rms.mean()}")
         check(med < 0.05, f"median position error {med} px")
         total = {k: total.get(k, 0) + v for k, v in n.items()}
         outs[streaming] = pos
-    dpos = float(np.abs(outs[None] - outs[False]).max())
-    check(dpos <= POS_ATOL, f"the two modes' fits differ by {dpos} px")
+    for a, b in ((True, False), (None, True)):
+        dpos = float(np.abs(outs[a] - outs[b]).max())
+        check(dpos <= POS_ATOL, f"the fits of streaming={a} and "
+              f"streaming={b} differ by {dpos} px")
     return total
 
 
@@ -703,7 +724,7 @@ def phase_rates3d(batch, device, smi):
     big = example_batch_3d(B=B_3D_BIG)
     solve_big, args_big = entry_3d(device, batch=big)
     rate_big, disp_big = _rate(solve_big, args_big, REPS_KERNEL // 4)
-    occ = occupancy(WINDOW_3D)
+    occ = occupancy(WINDOW_3D, n_slots=14)   # config 4: V = 14
     mode = "streamed" if pick_streaming(occ) else "resident"
     warps = occ[mode]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -751,6 +772,26 @@ def _profile(solve, args, reps=4):
             out = solve(*args)
         out[1].cpu()
     return wall, {k: v / reps for k, v in _device_ms(prof).items()}
+
+
+def phase_profile(batch, device, smi):
+    """torch.profiler over config 1's bucket solver: the LM kernel against
+    the rest of a solve, and the device's idle share."""
+    from clustertracking_tpu_torch import entry
+
+    solve, args = entry(device, batch=batch)
+    wall, dev = _profile(solve, args)
+    lm = sum(v for k, v in dev.items() if "lm_2d_kernel" in k)
+    others = sorted(((v, k) for k, v in dev.items()
+                     if "lm_2d_kernel" not in k), reverse=True)
+    rest = sum(v for v, _ in others)
+    print(f"[profile] {smi}: config 1 at B={len(args[4])}, per solve: wall "
+          f"{wall:.3f} ms (unprofiled); device fused_lm_2d {lm:.3f} ms, "
+          f"{len(others)} other kernels/copies {rest:.3f} ms (top: "
+          + "; ".join(f"{k[:40]} {v:.3f}" for v, k in others[:3])
+          + f"); device idle share {1.0 - (lm + rest) / wall:.3f}",
+          flush=True)
+    check(lm > 0, "the profile saw no fused_lm_2d kernel")
 
 
 def phase_profile3d(solve, args, smi):
@@ -1164,7 +1205,8 @@ def phase_kernel_rigid(batches, device, smi):
             print(f"[kernel_rigid] {smi}: config {config} {route} vs plain at "
                   f"B={B}, {c['window']}: {_fmt(a)}; with noise σ=1: "
                   f"{_fmt(a_n)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+                  f"time over bound {ms / bound['bound_ms']:.1f}x); "
                   f"mean in-mask npix {float(res_k.npix.mean()):.2f}, mean "
                   f"LM iters {float(res_k.n_iter.float().mean()):.2f}",
                   flush=True)
@@ -1376,6 +1418,8 @@ def main():
     _stamp("main")
     phase_rates(batch, device, smi)
     _stamp("rates")
+    phase_profile(batch, device, smi)
+    _stamp("profile")
     phase_refine(batch, device, smi)
     _stamp("refine")
     del batch
@@ -1404,9 +1448,12 @@ def main():
     _stamp("rigid")
     rr = phase_refine_rigid(rigid, device, smi)
     _stamp("refine_rigid")
-    # launches of the gathered route's kernels over the paths that drive it
-    n3 = {nm: n3[nm] + n2[nm] + (r3 or {}).get(nm, 0) for nm in n3}
-    n3["window_gather"] += nr["window_gather"] + rr["window_gather"]
+    # window_gather's launches over every path that drives it; pixel_lm's
+    # two modes keep config 4's own counts (main3d), the shape their
+    # entries are timed at
+    n3["window_gather"] += (n2["window_gather"]
+                            + (r3 or {}).get("window_gather", 0)
+                            + nr["window_gather"] + rr["window_gather"])
     for name in ("window_gather", "resident", "streamed"):
         check(n3[name] > 0, f"no path of the 3D slice launched {name}")
     src = "clustertracking_tpu_torch/csrc/"
@@ -1457,79 +1504,172 @@ def main():
     }}))
 
 
-def _ptxas_registers(report):
-    """(kernel, registers) of each entry in nvcc's -Xptxas -v report."""
-    out, entry = [], None
+def _ptxas_entries(report):
+    """(kernel, registers, bytes of spill stores and loads) of each entry
+    in nvcc's -Xptxas -v report."""
+    out, entry, spill = [], None, 0
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
+            entry, spill = line.split("'")[1], 0
+        elif "spill stores" in line and entry is not None:
+            spill = sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill", line))
         elif "registers" in line and entry is not None:
-            out.append((entry, int(line.split("Used")[1].split()[0])))
+            out.append((entry, int(line.split("Used")[1].split()[0]), spill))
             entry = None
     return out
 
 
-def gauss_kernels(root):
-    """The unconstrained gauss kernels of the port found under ``root``
-    (this checkout, or another one such as the parent commit's), timed on
-    one card: fused_lm_2d at config 1's first-round inputs (B=16,384) and
-    pixel_lm resident and streamed at config 4's (B=2,048), each against
-    its plain version, with the kernels' registers and pixel_lm's
-    occupancy.  One line; run two checkouts in turns to compare them."""
+def _template_args(entry):
+    """The integer template arguments of a mangled kernel name."""
+    return re.findall(r"L[ib](\d+)", entry.split("_kernel", 1)[1]
+                      .split("EEEv")[0])
+
+
+def _warps_by_registers(regs, warps_per_block=1):
+    """Warps per SM that a kernel's registers allow.  Each of an SM's four
+    partitions has 16,384 registers, handed out per warp in units of 256;
+    a block's warps share a partition only when it has one warp, as the LM
+    kernels' blocks do (at most 32 blocks per SM)."""
+    per_warp = 32 * (-(-regs // 8) * 8)
+    if warps_per_block == 1:
+        return min(32, 4 * (16384 // per_warp))
+    return min(64, 65536 // per_warp)
+
+
+def gauss_kernels(root, save=None):
+    """The gauss LM kernels of the port found under ``root`` (this
+    checkout, or another one such as the parent commit's), timed on one
+    card at the first-round inputs of four cells: fused_lm_2d at config 1
+    (B=16,384) and, rigid, at config 3's dimers (B=4,096); pixel_lm
+    resident and streamed at config 4 and, rigid, at config 3c (B=2,048
+    each).  Each is held against its plain version and printed with its
+    registers and pixel_lm's occupancy; ``save`` keeps every kernel's
+    per-lane x, cost, n_iter and npix in an .npz file.  One line per cell;
+    run two checkouts in turns to compare them."""
+    import inspect
+
     sys.path.insert(0, root)
     import torch
 
-    from clustertracking_tpu_torch.entry import example_batch, example_batch_3d
-    from clustertracking_tpu_torch.entry import WINDOW_3D
+    from clustertracking_tpu_torch.entry import (
+        WINDOW_3D, example_batch, example_batch_3d, example_batch_rigid)
+    from clustertracking_tpu_torch.models import get_model
     from clustertracking_tpu_torch.ops import _build
-    from clustertracking_tpu_torch.ops.fused_lm import (
-        fused_lm_2d, fused_lm_2d_reference)
-    from clustertracking_tpu_torch.ops.pixel_lm import (
-        occupancy, pixel_lm, pixel_lm_reference)
+    from clustertracking_tpu_torch.ops.pixel_lm import occupancy
 
     check(torch.cuda.is_available(), "no CUDA device")
     device = "cuda"
+    t0 = time.perf_counter()
     _build.build_kernels(("fused_lm_2d", "pixel_lm"))
-    # the gauss, unconstrained instantiations (template arguments after
-    # D and the mode all 0, or none), by kernel name
-    regs = {}
-    for n in ("fused_lm_2d", "pixel_lm"):
-        for entry, r in _ptxas_registers(_build.build_log(n)[1]):
-            args = entry.split("_kernel", 1)[1].split("EEEv")[0]
-            if args.startswith("ENS") or args.endswith(("ELi0ELi0", "Lb0",
-                                                         "Lb1", "ILi0ELi0")):
-                regs[f"{n}{args[:12]}"] = r
-    batch = example_batch(B=B_FULL, frame_size=FRAME, grid_pitch=PITCH)
-    args, kw, layout = _first_round_inputs(batch, device)
-    pos_slots = sorted({int(s) for p in layout.pos_param_idx
-                        for s in layout.slot_idx[:, p]})
-    a2 = _agreement(fused_lm_2d(*args, **kw),
-                    fused_lm_2d_reference(*args, **kw), pos_slots)
-    ms2 = _cuda_ms(lambda: fused_lm_2d(*args, **kw), 20)
-    st, args3, kw3, layout3 = _first_round_inputs_3d(
+    build_s = time.perf_counter() - t0
+    # the gauss instantiations, by their template arguments (profile 0):
+    # fused_lm_2d (profile, pose[, ceiling]), pixel_lm (D, streamed,
+    # profile, pose[, ceiling])
+    regs, spills = {}, {}
+    for n, prof_at in (("fused_lm_2d", 0), ("pixel_lm", 2)):
+        for entry, r, b in _ptxas_entries(_build.build_log(n)[1]):
+            targs = _template_args(entry)
+            if targs[prof_at] == "0":
+                regs[f"{n}<{','.join(targs)}>"] = r
+            if b:
+                spills[f"{n}<{','.join(targs)}>"] = b
+    kept = {}
+
+    def device_ms(call, args, kw, reps=5):
+        """The LM kernel's own time per launch (torch.profiler), without
+        the wrapper's host work."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call(args, kw)
+            torch.cuda.synchronize()
+        return sum(v for k, v in _device_ms(prof).items()
+                   if "lm_2d_kernel" in k or "pixel_lm_kernel" in k) / reps
+
+    def cell(name, route, args, kw, pos, reps):
+        call, plain = _launcher(route), _plain(route)
+        res = call(args, kw)
+        torch.cuda.synchronize()
+        a = _agreement(res, plain(args, kw), pos)
+        ms = _cuda_ms(lambda: call(args, kw), reps)
+        dev = device_ms(call, args, kw)
+        bound = _lm_bound(res, args, kw)["bound_ms"]
+        for f in ("x", "cost", "n_iter", "npix"):
+            kept[f"{name}/{route}/{f}"] = getattr(res, f).cpu().numpy()
+        return (f"{route} {ms:.4f} ms per call, kernel alone {dev:.4f} ms "
+                f"({dev / bound:.1f}x its bound; max "
+                f"|dpos| {a['pos']:.3e}, cost rel above floor "
+                f"{a['cost_rel_above_floor']:.3e}, converged equal "
+                f"{a['conv']:.5f}, n_iter equal {a['iters']:.5f}, mean "
+                f"n_iter {float(res.n_iter.float().mean()):.2f}, mean npix "
+                f"{float(res.npix.mean()):.2f})")
+
+    lines = []
+    args, kw, layout = _first_round_inputs(
+        example_batch(B=B_FULL, frame_size=FRAME, grid_pitch=PITCH), device)
+    pos = sorted({int(s) for p in layout.pos_param_idx
+                  for s in layout.slot_idx[:, p]})
+    lines.append(f"config 1 B={B_FULL}: "
+                 + cell("config1", "fused", args, kw, pos, 20))
+    _, args, kw, layout = _first_round_inputs_3d(
         example_batch_3d(B=B_3D), device)
-    pos3 = sorted({int(s) for p in layout3.pos_param_idx
-                   for s in layout3.slot_idx[:, p]})
-    res_p = pixel_lm_reference(*args3, **kw3)
-    ms3, a3 = {}, {}
-    for mode in ("resident", "streamed"):
-        def call():
-            return pixel_lm(*args3, **kw3, streaming=mode == "streamed")
-        a3[mode] = _agreement(call(), res_p, pos3)
-        ms3[mode] = _cuda_ms(call, 20)
-    print(f"[gauss_kernels] {root}: fused_lm_2d config 1 B={B_FULL} "
-          f"{ms2:.4f} ms (max |dpos| {a2['pos']:.3e}, cost rel "
-          f"{a2['cost_rel']:.3e}, converged equal {a2['conv']:.5f}); "
-          f"pixel_lm config 4 B={B_3D} resident {ms3['resident']:.4f} ms, "
-          f"streamed {ms3['streamed']:.4f} ms (max |dpos| "
-          f"{max(a['pos'] for a in a3.values()):.3e}, cost rel above floor "
-          f"{max(a['cost_rel_above_floor'] for a in a3.values()):.3e}); "
-          f"occupancy {occupancy(WINDOW_3D)} warps/SM; registers {regs}",
-          flush=True)
+    pos = sorted({int(s) for p in layout.pos_param_idx
+                  for s in layout.slot_idx[:, p]})
+    lines.append(f"config 4 B={B_3D}: " + "; ".join(
+        cell("config4", r, args, kw, pos, 20)
+        for r in ("resident", "streamed")))
+    for config, routes in (("3-dimer", ("fused",)),
+                           ("3c", ("resident", "streamed"))):
+        c, layout = _rigid_layout(config)
+        args, kw = _round_inputs(
+            get_model("gauss"), layout, example_batch_rigid(config),
+            c["window"], c["radius"], device, c["ndim"] == 3, c["con"])
+        posf = _rigid_positions(layout, c["con"])
+        lines.append(f"config {config} B={len(args[0])}: " + "; ".join(
+            cell(config, r, args, kw, posf, 10) for r in routes))
+    occ = {}
+    for name, V in (("config 4", 14), ("config 3c", 10)):
+        extra = ({"n_slots": V} if "n_slots" in inspect.signature(
+            occupancy).parameters else {})
+        window = WINDOW_3D if name == "config 4" else (16, 16, 16)
+        pose = 0 if name == "config 4" else 3
+        occ[name] = occupancy(window, pose=pose, **extra)
+    for line in lines:
+        print(f"[gauss_kernels] {root}: {line}", flush=True)
+    print(f"[gauss_kernels] {root}: build {build_s:.1f} s; pixel_lm "
+          f"occupancy {occ} warps/SM; registers {regs}; spilled bytes: "
+          f"{spills or 'none'}", flush=True)
+    if save:
+        np.savez(save, **kept)
+
+
+def compare_saved(file_a, file_b):
+    """Share of lanes on which two ``--save`` files agree bit for bit, per
+    kernel: x, cost and n_iter together, and npix."""
+    a, b = np.load(file_a), np.load(file_b)
+    for key in sorted(k[:-2] for k in a.files if k.endswith("/x")):
+        xa, xb = a[key + "/x"], b[key + "/x"]
+        same = ((xa.view(np.int32) == xb.view(np.int32)).all(axis=1)
+                & (a[key + "/cost"].view(np.int32)
+                   == b[key + "/cost"].view(np.int32))
+                & (a[key + "/n_iter"] == b[key + "/n_iter"]))
+        npix = a[key + "/npix"] == b[key + "/npix"]
+        print(f"[compare_saved] {key}: x, cost and n_iter bit-equal on "
+              f"{same.mean():.5f} of {len(same)} lanes; n_iter equal on "
+              f"{(a[key + '/n_iter'] == b[key + '/n_iter']).mean():.5f}; "
+              f"npix equal on {npix.mean():.5f}; max |dx| "
+              f"{np.nanmax(np.abs(xa - xb)):.3e}", flush=True)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gauss-kernels"]:
-        gauss_kernels(sys.argv[2] if len(sys.argv) > 2 else ".")
+        rest = sys.argv[2:]
+        save = rest[rest.index("--save") + 1] if "--save" in rest else None
+        gauss_kernels(rest[0] if rest and rest[0] != "--save" else ".", save)
+    elif sys.argv[1:2] == ["--compare-saved"]:
+        compare_saved(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -15,23 +15,30 @@
 // n-gon positions and their chain-rule Jacobian (lm_core.cuh).
 //
 // What bounds it on the H100: nothing is read from device memory inside
-// the LM loop — the window (wy·wx floats) and its mask weights are staged
-// in shared memory once per solve, so the kernel is bound by the
-// per-pixel arithmetic of the Jacobian sweeps.  The sweeps, the damped
-// Cholesky and the LM rules are the shared core in lm_core.cuh (one warp
-// per cluster, lanes over pixels, lanes own the cost/g/H sums); this file
-// only stages the window and hands the core every window pixel in raster
-// order, out-of-mask pixels with weight 0.  Shared memory per warp is
-// 2·wy·wx + 1,947 words (gauss, unconstrained; a profile's extras and a
-// pose's constants add to the core), so a 13×13 window takes ~9 KB and a
-// block holds up to 4 warps.
+// the LM loop, so a solve costs what its warp executes and waits for: the
+// per-pixel model and Jacobian arithmetic (divisions, an expf), the
+// cost/g/H products, and one damped Cholesky per iteration.  A warp's
+// solve is one dependent chain, and with 12-16 warps on an SM the time is
+// that chain's latency, not the FP32 rate the bound counts.  The shared
+// core in lm_core.cuh says what it does about each link (one warp per
+// cluster, lanes over pixels, four pixels' chains interleaved per lane,
+// products in register accumulators, the Cholesky across the warp).
+// This file cuts the window out of the frame and, while it does, compacts
+// it to the pixels inside the fit mask, in raster order (a ballot and a
+// popcount per 32 pixels): each keeps its value and its (y, x) packed into
+// one int, and every sweep visits only those — a third to a half of a
+// window lies outside the mask and weighs exactly 0.  Shared memory per
+// warp is 2·wy·wx + 2,007 words (gauss, unconstrained; a profile's extras
+// and a pose's constants add to the core), so a 13×13 window takes ~9.4
+// KB; a block is one warp.
 //
 // Numerics follow the reference kernel: the mask is computed as
 // (off − rel)·(1/r) with explicit _rn intrinsics, so npix matches it
-// exactly; the weight is mask·(1/norm).  Sums over pixels run in pixel
-// order, so results agree with the plain version to float32 rounding, not
-// bit for bit (lm_core.cuh says why the build has -fmad=false).  Build
-// without --use_fast_math: expf accuracy moves accept decisions.
+// exactly; a listed pixel weighs 1/norm.  Sums over pixels run per lane
+// and then across lanes, so results agree with the plain version to
+// float32 rounding, not bit for bit (lm_core.cuh says why the build has
+// -fmad=false).  Build without --use_fast_math: expf accuracy moves accept
+// decisions.
 //
 // Lanes with valid == 0 are not solved: x = clip(x0), cost = 0,
 // n_iter = 0, converged = 0, npix = 0 (what the reference kernel writes
@@ -67,38 +74,43 @@ struct Problem {
   float* npix;               // [B]
 };
 
-// The whole staged window in raster order; out-of-mask pixels weigh 0.
-struct WindowPixels {
-  const float* win;
-  const float* w;
-  int npx, wx;
-  __device__ int count() const { return npx; }
-  __device__ void load(int q, float* off, float& val, float& wc) const {
-    const int qy = q / wx;
-    off[0] = (float)qy;
-    off[1] = (float)(q - qy * wx);
-    val = win[q];
-    wc = w[q];
+// The window's in-mask pixels in raster order: packed (y << 16 | x) and
+// value, in shared memory; each weighs 1/norm.
+struct ListedPixels {
+  const int* idx;
+  const float* val;
+  int cnt;
+  float wc;
+  __device__ int count() const { return cnt; }
+  __device__ void load(int k, float* off, float& v, float& w) const {
+    const int pk = idx[k];
+    off[0] = (float)(pk >> 16);
+    off[1] = (float)(pk & 0xffff);
+    v = val[k];
+    w = wc;
   }
 };
 
-// Per-warp shared memory: the window, its weights, then the LM core.
+// Per-warp shared memory: the pixel list (2·npix words, the mask's worst
+// case), then the LM core.
 template <int Prof, int Pose>
 __host__ __device__ inline CoreLayout warp_layout(int npix) {
   return core_layout<2, Prof, Pose>(2 * npix);
 }
 
-template <int Prof, int Pose>
-__global__ void fused_lm_2d_kernel(Problem p, int warps_per_block) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * warps_per_block + warp;
-  if (b >= p.B) return;
+// One warp, one block, one cluster: a warp that ends frees its place on
+// the SM for the next cluster at once (iteration counts spread 3x around
+// their mean, and a block of several warps would hold its shared memory
+// and registers until its slowest cluster ends).
+template <int Prof, int Pose, int VM>
+__global__ void __launch_bounds__(32, MinBlocks<VM>::N) fused_lm_2d_kernel(Problem p) {
+  extern __shared__ float sm[];
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
   const int npx = p.wy * p.wx;
   const CoreLayout L = warp_layout<Prof, Pose>(npx);
-  float* sm = smem + (size_t)warp * L.total;
-  float* win = sm;
-  float* wgt = sm + npx;
+  int* idx = reinterpret_cast<int*>(sm);
+  float* val = sm + npx;
   const int V = p.V, n = p.n;
   float* xs = sm + L.xs;
 
@@ -126,17 +138,17 @@ __global__ void fused_lm_2d_kernel(Problem p, int warps_per_block) {
                                  p.ma, b);
   stage_slots<2, Prof>(c, reinterpret_cast<int*>(sm + L.fs), lane);
 
-  // Stage the window and the fit mask (computed once, from the
-  // gather-time positions, as the reference kernel does).
-  const float inv_norm = 1.f / p.norm[b];
+  // Stage the window's in-mask pixels (the fit mask is computed once,
+  // from the gather-time positions, as the reference kernel does).
   const float* frame = p.frames + (size_t)fi * p.H * p.W;
   const float orgy = (float)oy, orgx = (float)ox;
   int cnt = 0;
-  for (int q = lane; q < npx; q += 32) {
+  for (int q0 = 0; q0 < npx; q0 += 32) {
+    const int q = q0 + lane;
     const int qy = q / p.wx, qx = q - qy * p.wx;
     const float offy = (float)qy, offx = (float)qx;
     bool hit = false;
-    for (int i = 0; i < n; ++i) {
+    for (int i = 0; q < npx && i < n; ++i) {
       if (!(c.fvalid[i] > 0.5f)) continue;
       const float* pa = p.pos_at + ((size_t)b * n + i) * 2;
       const float dmy = __fmul_rn(__fsub_rn(offy, __fsub_rn(pa[0], orgy)), p.inv_ry);
@@ -144,14 +156,18 @@ __global__ void fused_lm_2d_kernel(Problem p, int warps_per_block) {
       const float r2m = __fadd_rn(__fmul_rn(dmy, dmy), __fmul_rn(dmx, dmx));
       hit = hit || (r2m <= 1.f);
     }
-    win[q] = frame[(size_t)(oy + qy) * p.W + (ox + qx)];
-    wgt[q] = hit ? inv_norm : 0.f;
-    cnt += hit ? 1 : 0;
+    const unsigned m = __ballot_sync(kFullWarp, hit);
+    if (hit) {
+      const int k = cnt + __popc(m & ((1u << lane) - 1u));
+      idx[k] = (qy << 16) | qx;
+      val[k] = frame[(size_t)(oy + qy) * p.W + (ox + qx)];
+    }
+    cnt += __popc(m);
   }
-  for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+  __syncwarp();
 
-  const LMOut r = lm_run<2, Prof, Pose>(c, p.lm, sm, L, lane,
-                                        WindowPixels{win, wgt, npx, p.wx});
+  const LMOut r = lm_run<2, Prof, Pose, VM>(
+      c, p.lm, sm, L, lane, ListedPixels{idx, val, cnt, 1.f / p.norm[b]});
 
   if (lane < V) p.x_out[(size_t)b * V + lane] = xs[lane];
   if (lane == 0) {
@@ -162,34 +178,37 @@ __global__ void fused_lm_2d_kernel(Problem p, int warps_per_block) {
   }
 }
 
-template <int Prof, int Pose>
+template <int Prof, int Pose, int VM>
 int launch_t(Problem p, cudaStream_t stream) {
-  const size_t warp_bytes =
+  const size_t smem =
       sizeof(float) * (size_t)warp_layout<Prof, Pose>(p.wy * p.wx).total;
   constexpr size_t kBlockBudget = 200 * 1024;
-  int wpb = (int)(kBlockBudget / warp_bytes);
-  if (wpb > 4) wpb = 4;
-  if (wpb < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = warp_bytes * wpb;
+  if (smem > kBlockBudget) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_lm_2d_kernel<Prof, Pose>,
+        fused_lm_2d_kernel<Prof, Pose, VM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (p.B + wpb - 1) / wpb;
-  fused_lm_2d_kernel<Prof, Pose><<<blocks, 32 * wpb, smem, stream>>>(p, wpb);
+  fused_lm_2d_kernel<Prof, Pose, VM><<<p.B, 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// The gauss profile has register instantiations at each slot-count
+// ceiling; the other profiles, and V past the last ceiling, take the
+// tile instantiation.
 template <int Pose>
 int launch_pose(int prof, Problem p, cudaStream_t s) {
   switch (prof) {
-    case kGauss: return launch_t<kGauss, Pose>(p, s);
-    case kRing: return launch_t<kRing, Pose>(p, s);
-    case kHat: return launch_t<kHat, Pose>(p, s);
-    case kDisc: return launch_t<kDisc, Pose>(p, s);
-    case kInvSeries: return launch_t<kInvSeries, Pose>(p, s);
+    case kGauss:
+      if (p.V <= kRegSlotsLow) return launch_t<kGauss, Pose, kRegSlotsLow>(p, s);
+      if (p.V <= kRegSlotsMid) return launch_t<kGauss, Pose, kRegSlotsMid>(p, s);
+      if (p.V <= kRegSlotsHigh) return launch_t<kGauss, Pose, kRegSlotsHigh>(p, s);
+      return launch_t<kGauss, Pose, 0>(p, s);
+    case kRing: return launch_t<kRing, Pose, 0>(p, s);
+    case kHat: return launch_t<kHat, Pose, 0>(p, s);
+    case kDisc: return launch_t<kDisc, Pose, 0>(p, s);
+    case kInvSeries: return launch_t<kInvSeries, Pose, 0>(p, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -35,23 +35,49 @@
 //     chained into the pose rows.  Only the rigid instantiations reserve
 //     that staging.
 //
-// Work split inside the warp (what bounds the sweep is per-pixel
-// arithmetic: one expf and ~8·D FLOPs per feature per pixel, then
-// V(V+3)/2+1 products per pixel for cost, g and H):
-//   * the 32 lanes take 32 consecutive pixels; each lane writes its
-//     pixel's residual and Jacobian row into a per-warp shared tile
-//     [32 pixels][V+1];
-//   * lane l then owns sums l, l+32, ... of the V(V+3)/2+1 (cost, g, H)
-//     and adds its products over the tile's 32 rows, in row order;
-//   * the V×V damped Cholesky is serial on lane 0 in shared memory;
+// What bounds a solve on the H100, and the work split inside the warp.
+// A solve is a chain of sweeps and damped solves, and a warp runs its own
+// chain: nothing is read from device memory in the loop (streamed
+// pixel_lm: from L2), so the time is instruction count and latency, not
+// bytes.  Per pixel a sweep needs one expf and ~8·D FLOPs per feature,
+// then (V+1)(V+2)/2 products for cost, g and H; the design keeps those
+// products in the FP32 pipe instead of the load/store unit:
+//   * the 32 lanes take pixels lane, lane+32, ...; each lane scatters its
+//     pixel's residual and Jacobian row by slot into a private row of
+//     shared memory (odd stride: no bank conflict, and no lane reads
+//     another's row, so the pixel loop has no warp barrier), two to four
+//     pixels at a time, whose chains of divisions and expf interleave;
+//   * register instantiations (VM = a slot-count ceiling, 8, 10 or 14): the
+//     lane loads its row back into registers once and adds the pixel's
+//     products into its own register accumulators; after the last pixel
+//     the warp sums the accumulators with a transposed shuffle reduction
+//     (31 shuffles per 32 sums, against 5 per sum for a butterfly) that
+//     leaves sums m·l .. m·l+m−1 on lane l;
+//   * the tile instantiation (VM = 0: any V up to kMaxSlots, and the
+//     non-gauss profiles): lane l owns sums l, l+32, ... and adds its
+//     products over the 32 rows of each chunk, reading other lanes' rows;
+//   * the damped Cholesky runs across the warp: lane i owns row i of the
+//     factor (a private shared row), pivots and columns travel by shuffle,
+//     and every element is summed over k in ascending order, so each
+//     rounds exactly as a serial factorization and substitution does;
+//   * what is left is one warp's dependent chain (divisions, an expf,
+//     shared round trips, shuffles), so the code a warp walks per
+//     iteration is kept small (one sweep call site, rolled solve loops)
+//     and every loop makes the same number of trips on all lanes;
 //   * a cluster leaves its LM loop on its own when it converges or sticks
 //     (the reference freezes converged lanes of a lockstep tile, so
 //     per-lane results are the same).
+// Items of a sweep are the products z_u·z_v, u <= v, of the augmented row
+// z = [residual, J_0 .. J_{V-1}], stored at v(v+1)/2 + u: item 0 is the
+// cost, column v = i+1 holds g_i first and then H[0..i][i], and the items
+// of V slots are a prefix of those of any larger V.
 //
 // Numerics: the libraries are built with -fmad=false (ops/_build.py), so
 // every product and sum rounds as the plain PyTorch version's elementwise
 // ops do; the Cholesky pivot is clamped at 1e-20 and divides, as
-// ops/lm.py does.
+// ops/lm.py does.  Sums over pixels run per lane and then across lanes,
+// in one order for every pixel source, so resident and streamed pixel_lm
+// agree bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,9 +87,25 @@ namespace lmcore {
 
 constexpr int kMaxSlots = 20;                        // V cap (V < 20 routed)
 constexpr int kMaxFeatures = 32;                     // n cap
-constexpr int kJStride = kMaxSlots + 1;              // J row + residual
-constexpr int kMaxItems = 1 + kMaxSlots + kMaxSlots * (kMaxSlots + 1) / 2;
+constexpr int kJStride = kMaxSlots + 1;              // J row + residual; odd
+constexpr int kJTileWords = 1152;                    // the J tile (RowLayout)
+constexpr int kMaxItems = (kMaxSlots + 1) * (kMaxSlots + 2) / 2;
 constexpr int kItemsPerLane = (kMaxItems + 31) / 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
+// Slot-count ceilings of the register instantiations (8: configs 1, 3,
+// 3b; 10: config 3c, free trimers; 14: config 4); V above the last one
+// takes the tile instantiation (VM = 0).
+constexpr int kRegSlotsLow = 8;
+constexpr int kRegSlotsMid = 10;
+constexpr int kRegSlotsHigh = 14;
+// Blocks (of one warp) per SM that each instantiation's registers are
+// held to, for __launch_bounds__: the most that needs no spill.  A block
+// lives in one of the SM's four register partitions, so what counts is
+// blocks per partition: 2 allow 255 registers, 3 allow 168, 4 allow 128.
+template <int VM>
+struct MinBlocks {
+  static constexpr int N = VM == kRegSlotsHigh ? 8 : VM == 0 ? 16 : 12;
+};
 constexpr int kMaxSeries = 8;                        // inv_series k cap
 
 // Profile tags (models/registry.py) and rigid-pose kinds (constraints.py);
@@ -105,7 +147,7 @@ struct PoseStage {
 // The core's per-warp shared memory, in 4-byte words, placed after the
 // `base` words a kernel keeps for its own pixels.
 struct CoreLayout {
-  int jbuf, acc, xs, xt, dl, fp, fs, chol, pose, total;
+  int jbuf, acc, xs, xt, fp, fs, pose, total;
 };
 
 template <int D, int Prof = kGauss, int Pose = kNoPose>
@@ -113,14 +155,12 @@ __host__ __device__ inline CoreLayout core_layout(int base) {
   using FT = Feat<D, ProfileExtras<Prof>::N>;
   CoreLayout L;
   int o = base;
-  L.jbuf = o; o += 32 * kJStride;                       // [32][V+1] J + r
+  L.jbuf = o; o += kJTileWords;       // J rows + r; the solve's factor
   L.acc = o;  o += 2 * kMaxItems;                       // two sweep sums
   L.xs = o;   o += kMaxSlots;                           // current x
   L.xt = o;   o += kMaxSlots;                           // trial x
-  L.dl = o;   o += kMaxSlots;                           // step
   L.fp = o;   o += kMaxFeatures * FT::F + 1;            // params + bg
   L.fs = o;   o += kMaxFeatures * FT::I;                // slots (int)
-  L.chol = o; o += kMaxSlots * kMaxSlots;               // Cholesky factor
   L.pose = o; o += PoseStage<Pose>::W;                  // pose constants
   L.total = o;
   return L;
@@ -192,21 +232,14 @@ __device__ inline float clip(float v, float lo, float hi) {
   return v > hi ? hi : v;
 }
 
-__device__ inline int tri_index(int u, int v, int V) {
-  // upper-triangle (u <= v) position, row-major
-  return u * V - u * (u - 1) / 2 + (v - u);
-}
-
 // Item k of a sweep -> the pair of J-tile columns whose products it sums
-// (column V holds the residual): k = 0 cost, 1..V gradient, then H.
-__device__ inline void item_pair(int k, int V, int* u, int* v) {
-  if (k == 0) { *u = V; *v = V; return; }
-  if (k <= V) { *u = k - 1; *v = V; return; }
-  int t = k - 1 - V;
-  int a = 0;
-  while (t >= V - a) { t -= V - a; ++a; }
-  *u = a;
-  *v = a + t;
+// (column V of the tile holds the residual, entry 0 of the augmented row).
+__device__ inline void item_pair(int k, int V, int* cu, int* cv) {
+  int v = 0;
+  while ((v + 1) * (v + 2) / 2 <= k) ++v;
+  const int u = k - v * (v + 1) / 2;
+  *cu = u == 0 ? V : u - 1;
+  *cv = v == 0 ? V : v - 1;
 }
 
 // Pose slots before a fitted distance: 2D center + angle, 3D center +
@@ -236,7 +269,7 @@ __device__ inline void stage_slots(const Cluster& c, int* fs, int lane) {
 }
 
 // Lane i's feature position from the pose x (rigid), written as
-// rel = position − window corner, with the pose constants pixel_row reads
+// rel = position − window corner, with the pose constants pixel_rows reads
 // (pallas_lm.py:570-701, constraints.py::pose_to_positions inlined).
 template <int D, int Pose>
 __device__ inline void stage_pose(const Cluster& c, const float* x, int i,
@@ -402,92 +435,190 @@ __device__ inline float profile_dextra(int k, float r2, const float* ex,
   }
 }
 
-// One pixel's weighted residual and Jacobian row, added into jrow[0..V]
-// (zeroed by the caller).  The profile is evaluated here and nowhere
-// else; dI/dr² reuses the profile's value (gauss: −f/2).  A rigid
-// bucket's position gradient g is chained into the pose rows.
-template <int D, int Prof = kGauss, int Pose = kNoPose>
-__device__ inline void pixel_row(const float* off, float val, float wc,
-                                 const float* fp, const int* fs,
-                                 const float* ps, const Cluster& c,
-                                 int s_bg, float* jrow) {
+// The weighted residuals and Jacobian rows of NPX pixels of one lane,
+// added into jrow[t·PITCH + 0..V] for pixel t (zeroed by the caller).
+// Every statement runs over the NPX pixels before the next one starts, so
+// their chains of divisions and expf, which do not depend on each other,
+// are in flight together: one pixel's chain alone leaves the warp waiting
+// ~2,000 cycles per pixel.  Per pixel the arithmetic and its order are
+// those of a single-pixel row.  The profile is evaluated here and nowhere
+// else; dI/dr² reuses the profile's value (gauss: −f/2).  A rigid bucket's
+// position gradient g is chained into the pose rows.
+template <int D, int Prof, int Pose, int NPX, int PITCH>
+__device__ inline void pixel_rows(const float (&off)[NPX][D],
+                                  const float (&val)[NPX],
+                                  const float (&wc)[NPX], const float* fp,
+                                  const int* fs, const float* ps,
+                                  const Cluster& c, int s_bg, float* jrow) {
   using FT = Feat<D, ProfileExtras<Prof>::N>;
   const int n = c.n, V = c.V;
-  if (s_bg >= 0) jrow[s_bg] += wc;
-  float model = 0.f;  // Σ signal·f, then + background (the plain order)
+  auto put = [&](int at, float term) { jrow[at] += term; };
+#define LM_EACH_PIXEL _Pragma("unroll") for (int t = 0; t < NPX; ++t)
+  if (s_bg >= 0) LM_EACH_PIXEL put(t * PITCH + s_bg, wc[t]);
+  float model[NPX];  // Σ signal·f, then + background (the plain order)
+  LM_EACH_PIXEL model[t] = 0.f;
   for (int i = 0; i < n; ++i) {
     const float* f = fp + i * FT::F;
     const int* s = fs + i * FT::I;
     const float sig = f[0], fv = f[1 + 2 * D];
-    float dd[D];
-    float r2 = 0.f;
+    float dd[NPX][D], r2[NPX], fe[NPX], dfe[NPX], sig_df[NPX];
+    LM_EACH_PIXEL {
+      r2[t] = 0.f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dd[d] = (off[d] - f[1 + d]) / f[1 + D + d];
-      r2 = r2 + dd[d] * dd[d];
+      for (int d = 0; d < D; ++d) {
+        dd[t][d] = (off[t][d] - f[1 + d]) / f[1 + D + d];
+        r2[t] = r2[t] + dd[t][d] * dd[t][d];
+      }
     }
-    float fe, dfe;
-    profile<Prof>(r2, f + 2 + 2 * D, c.nx, &fe, &dfe);
-    model = model + sig * fe;
-    const float sig_df = sig * dfe;
-    if (s[0] >= 0) jrow[s[0]] += fe * wc * fv;
+    LM_EACH_PIXEL profile<Prof>(r2[t], f + 2 + 2 * D, c.nx, &fe[t], &dfe[t]);
+    LM_EACH_PIXEL {
+      model[t] = model[t] + sig * fe[t];
+      sig_df[t] = sig * dfe[t];
+    }
+    if (s[0] >= 0) LM_EACH_PIXEL put(t * PITCH + s[0], fe[t] * wc[t] * fv);
     if constexpr (Pose == kNoPose) {
 #pragma unroll
       for (int d = 0; d < D; ++d)
         if (s[1 + d] >= 0)
-          jrow[s[1 + d]] += sig_df * (-2.f) * dd[d] / f[1 + D + d] * wc;
+          LM_EACH_PIXEL put(
+              t * PITCH + s[1 + d],
+              sig_df[t] * (-2.f) * dd[t][d] / f[1 + D + d] * wc[t]);
     } else {
-      float g[D];
+      float g[NPX][D];
+      LM_EACH_PIXEL {
 #pragma unroll
-      for (int d = 0; d < D; ++d)
-        g[d] = sig_df * (-2.f) * dd[d] / f[1 + D + d] * wc;
+        for (int d = 0; d < D; ++d)
+          g[t][d] = sig_df[t] * (-2.f) * dd[t][d] / f[1 + D + d] * wc[t];
+      }
 #pragma unroll
-      for (int d = 0; d < D; ++d) jrow[d] += g[d];  // ∂pos/∂center = I
+      for (int d = 0; d < D; ++d)   // ∂pos/∂center = I
+        LM_EACH_PIXEL put(t * PITCH + d, g[t][d]);
       const float Rc = ps[0];
       constexpr int Q = PoseDim<Pose>::Q;
       if constexpr (Pose == kNgon2D) {
         const float si = ps[1 + 2 * i], ci = ps[2 + 2 * i];
-        jrow[2] += Rc * (ci * g[0] - si * g[1]);
-        if (c.fit_dist) jrow[Q] += c.circ * (si * g[0] + ci * g[1]);
+        LM_EACH_PIXEL put(t * PITCH + 2, Rc * (ci * g[t][0] - si * g[t][1]));
+        if (c.fit_dist)
+          LM_EACH_PIXEL put(t * PITCH + Q,
+                            c.circ * (si * g[t][0] + ci * g[t][1]));
       } else if constexpr (Pose == kAxis3D) {
         const float sRc = i == 0 ? Rc : -Rc;
-        jrow[3] += sRc * (ps[4] * g[0] + ps[5] * g[1] + ps[6] * g[2]);
-        jrow[4] += sRc * (ps[8] * g[1] + ps[9] * g[2]);
+        LM_EACH_PIXEL put(
+            t * PITCH + 3,
+            sRc * (ps[4] * g[t][0] + ps[5] * g[t][1] + ps[6] * g[t][2]));
+        LM_EACH_PIXEL put(t * PITCH + 4,
+                          sRc * (ps[8] * g[t][1] + ps[9] * g[t][2]));
         if (c.fit_dist) {
           const float sc = i == 0 ? c.circ : -c.circ;
-          jrow[Q] += sc * (ps[1] * g[0] + ps[2] * g[1] + ps[3] * g[2]);
+          LM_EACH_PIXEL put(
+              t * PITCH + Q,
+              sc * (ps[1] * g[t][0] + ps[2] * g[t][1] + ps[3] * g[t][2]));
         }
       } else {
         const float* rb = ps + 1 + 12 * i;
         const float* M = rb + 3;
 #pragma unroll
         for (int q = 0; q < 3; ++q)
-          jrow[3 + q] += Rc * (M[q] * g[0] + M[3 + q] * g[1] + M[6 + q] * g[2]);
+          LM_EACH_PIXEL put(
+              t * PITCH + 3 + q,
+              Rc * (M[q] * g[t][0] + M[3 + q] * g[t][1] + M[6 + q] * g[t][2]));
         if (c.fit_dist)
-          jrow[Q] += c.circ * (rb[0] * g[0] + rb[1] * g[1] + rb[2] * g[2]);
+          LM_EACH_PIXEL put(
+              t * PITCH + Q,
+              c.circ * (rb[0] * g[t][0] + rb[1] * g[t][1] + rb[2] * g[t][2]));
       }
     }
     if (c.iso) {
       if (s[1 + D] >= 0)
-        jrow[s[1 + D]] += sig_df * (-2.f) * r2 / f[1 + D] * wc;
+        LM_EACH_PIXEL put(t * PITCH + s[1 + D],
+                          sig_df[t] * (-2.f) * r2[t] / f[1 + D] * wc[t]);
     } else {
 #pragma unroll
       for (int d = 0; d < D; ++d)
         if (s[1 + D + d] >= 0)
-          jrow[s[1 + D + d]] +=
-              sig_df * (-2.f) * dd[d] * dd[d] / f[1 + D + d] * wc;
+          LM_EACH_PIXEL put(t * PITCH + s[1 + D + d],
+                            sig_df[t] * (-2.f) * dd[t][d] * dd[t][d] /
+                                f[1 + D + d] * wc[t]);
     }
     for (int k = 0; k < ProfileExtras<Prof>::N && k < c.nx; ++k)
       if (s[1 + 2 * D + k] >= 0)
-        jrow[s[1 + 2 * D + k]] +=
-            sig * profile_dextra<Prof>(k, r2, f + 2 + 2 * D, fe) * wc;
+        LM_EACH_PIXEL put(
+            t * PITCH + s[1 + 2 * D + k],
+            sig * profile_dextra<Prof>(k, r2[t], f + 2 + 2 * D, fe[t]) * wc[t]);
   }
-  jrow[V] = ((fp[kMaxFeatures * FT::F] + model) - val) * wc;
+  LM_EACH_PIXEL jrow[t * PITCH + V] =
+      ((fp[kMaxFeatures * FT::F] + model[t]) - val[t]) * wc[t];
+#undef LM_EACH_PIXEL
 }
 
-// One residual + Jacobian sweep at x (shared, length V): writes cost, g
-// and the upper triangle of H into acc (shared).
-template <int D, int Prof, int Pose, class Pixels>
+// A register instantiation's row layout in the J tile: rows of VM+1 words
+// (odd, as kJStride is), and NPX tiles of 32 rows, one per pixel a lane
+// has in flight; kJTileWords holds the widest (4·32·9, 3·32·11, 2·32·15
+// and the tile instantiation's 32·21).  NPX is what each ceiling's
+// registers hold beside its accumulators without a spill (four at the
+// high ceiling measured slower than two: PERF.md).
+template <int VM>
+struct RowLayout {
+  static constexpr int NPX = VM == kRegSlotsLow ? 4 : VM == kRegSlotsMid ? 3 : 2;
+  static constexpr int Stride = VM + 1;
+  static constexpr int Pitch = 32 * Stride;
+  static_assert(NPX * Pitch <= kJTileWords, "the J tile is too small");
+};
+
+// Register accumulators of a ceiling VM: the (VM+1)(VM+2)/2 items, padded
+// to whole groups of 32 for the warp reduction.
+template <int VM>
+struct RegItems {
+  static constexpr int N = (VM + 1) * (VM + 2) / 2;
+  static constexpr int M = (N + 31) / 32;     // items per lane, reduced
+  static constexpr int NP = 32 * M;
+};
+
+// One step of the transposed warp sum: lanes whose bit O is set keep the
+// upper HALF of their values, the others the lower, and each adds its
+// partner's copy of the half it keeps.
+template <int O, int HALF, int NP>
+__device__ inline void fold(float (&a)[NP], int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const float send = up ? a[k] : a[k + HALF];
+    const float keep = up ? a[k + HALF] : a[k];
+    a[k] = keep + __shfl_xor_sync(kFullWarp, send, O);
+  }
+}
+
+// Sums a[0 .. 32·M) over the warp; lane l ends with the sums of items
+// M·l .. M·l + M − 1 in a[0 .. M).
+template <int M, int NP>
+__device__ inline void warp_sum_transposed(float (&a)[NP], int lane) {
+  static_assert(32 * M <= NP, "more items than accumulators");
+  fold<16, 16 * M>(a, lane);
+  fold<8, 8 * M>(a, lane);
+  fold<4, 4 * M>(a, lane);
+  fold<2, 2 * M>(a, lane);
+  fold<1, M>(a, lane);
+}
+
+// Reduces the first n_items accumulators over the warp, in the fewest
+// groups of 32 that hold them, and writes them to acc (shared).
+template <int M, int MMAX, int NP>
+__device__ inline void reduce_items(float (&a)[NP], int lane, int n_items,
+                                    float* acc) {
+  if (M == MMAX || n_items <= 32 * M) {
+    warp_sum_transposed<M>(a, lane);
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      if (M * lane + k < n_items) acc[M * lane + k] = a[k];
+  } else if constexpr (M < MMAX) {
+    reduce_items<M + 1, MMAX>(a, lane, n_items, acc);
+  }
+}
+
+// One residual + Jacobian sweep at x (shared, length V): writes the items
+// (cost, g, the upper triangle of H) into acc (shared).  VM > 0: register
+// accumulators; VM = 0: the shared tile, lanes owning items (iu, iv).
+template <int D, int Prof, int Pose, int VM, class Pixels>
 __device__ void sweep(const Cluster& c, const float* x, float* sm,
                       const CoreLayout& L, float* acc, int lane,
                       const int* iu, const int* iv, int n_items,
@@ -500,102 +631,201 @@ __device__ void sweep(const Cluster& c, const float* x, float* sm,
   stage_features<D, Prof, Pose>(c, x, fp, ps, lane);
   __syncwarp();
   const int s_bg = c.slot_idx[0];
-  float* jrow = sm + L.jbuf + lane * kJStride;
-  const float* jb = sm + L.jbuf;
   const int count = px.count();
 
-  float a[kItemsPerLane];
+  if constexpr (VM > 0) {
+    using RI = RegItems<VM>;
+    using RL = RowLayout<VM>;
+    constexpr int NPX = RL::NPX;
+    float* jrow = sm + L.jbuf + lane * RL::Stride;
+    float a[RI::NP];
 #pragma unroll
-  for (int j = 0; j < kItemsPerLane; ++j) a[j] = 0.f;
-
-  for (int c0 = 0; c0 < count; c0 += 32) {
-    const int k = c0 + lane;
-    for (int s = 0; s <= V; ++s) jrow[s] = 0.f;
-    if (k < count) {
-      float off[D], val, wc;
-      px.load(k, off, val, wc);
-      pixel_row<D, Prof, Pose>(off, val, wc, fp, fs, ps, c, s_bg, jrow);
-    }
-    __syncwarp();
+    for (int j = 0; j < RI::NP; ++j) a[j] = 0.f;
+    // A trip takes 32·NPX pixels, NPX per lane (lane, lane + 32, ... of the
+    // trip, so a lane meets its pixels in list order).  Every lane makes
+    // the same number of trips, so the warp is whole again after each one:
+    // shuffles executed by a warp that a lane-dependent trip count has split
+    // take a path ~100 cycles long each.  A pixel past the list's end
+    // reads the last one and is not added.
+    for (int c0 = 0; c0 < count; c0 += 32 * NPX) {
+      float off[NPX][D], val[NPX], wc[NPX];
 #pragma unroll
-    for (int j = 0; j < kItemsPerLane; ++j) {
-      if (lane + 32 * j < n_items) {
-        const int u = iu[j], v = iv[j];
-        float s = 0.f;
-        for (int r = 0; r < 32; ++r) s += jb[r * kJStride + u] * jb[r * kJStride + v];
-        a[j] += s;
+      for (int t = 0; t < NPX; ++t) {
+        const int k = c0 + 32 * t + lane;
+        px.load(k < count ? k : count - 1, off[t], val[t], wc[t]);
+      }
+      for (int s = 0; s <= V; ++s) {
+#pragma unroll
+        for (int t = 0; t < NPX; ++t) jrow[t * RL::Pitch + s] = 0.f;
+      }
+      pixel_rows<D, Prof, Pose, NPX, RL::Pitch>(off, val, wc, fp, fs, ps, c,
+                                                s_bg, jrow);
+#pragma unroll
+      for (int t = 0; t < NPX; ++t) {
+        if (c0 + 32 * t + lane < count) {
+          const float* row = jrow + t * RL::Pitch;
+          float z[VM + 1];
+          z[0] = row[V];
+#pragma unroll
+          for (int v = 0; v < VM; ++v) z[1 + v] = v < V ? row[v] : 0.f;
+#pragma unroll
+          for (int v = 0; v <= VM; ++v) {
+            if (v <= V) {
+#pragma unroll
+              for (int u = 0; u <= v; ++u) {
+                float& s = a[v * (v + 1) / 2 + u];
+                s = s + z[u] * z[v];
+              }
+            }
+          }
+        }
       }
     }
-    __syncwarp();
-  }
+    reduce_items<1, RI::M>(a, lane, n_items, acc);
+  } else {
+    float* jrow = sm + L.jbuf + lane * kJStride;
+    const float* jb = sm + L.jbuf;
+    float a[kItemsPerLane];
 #pragma unroll
-  for (int j = 0; j < kItemsPerLane; ++j)
-    if (lane + 32 * j < n_items) acc[lane + 32 * j] = a[j];
+    for (int j = 0; j < kItemsPerLane; ++j) a[j] = 0.f;
+    for (int c0 = 0; c0 < count; c0 += 32) {
+      const int k = c0 + lane;
+      for (int s = 0; s <= V; ++s) jrow[s] = 0.f;
+      if (k < count) {
+        float off[1][D], val[1], wc[1];
+        px.load(k, off[0], val[0], wc[0]);
+        pixel_rows<D, Prof, Pose, 1, 0>(off, val, wc, fp, fs, ps, c, s_bg,
+                                        jrow);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kItemsPerLane; ++j) {
+        if (lane + 32 * j < n_items) {
+          const int u = iu[j], v = iv[j];
+          float s = 0.f;
+          for (int r = 0; r < 32; ++r) s += jb[r * kJStride + u] * jb[r * kJStride + v];
+          a[j] += s;
+        }
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int j = 0; j < kItemsPerLane; ++j)
+      if (lane + 32 * j < n_items) acc[lane + 32 * j] = a[j];
+  }
   __syncwarp();
 }
 
-// (H + λ·max(diag H, 1e-12) + 1e-10·I) δ = −g by Cholesky, serial (lane 0).
-__device__ inline void damped_solve(const float* acc, float lam, int V,
-                                    float* Lm, float* delta) {
-  const float* g = acc + 1;
-  const float* Hu = acc + 1 + V;
+// (H + λ·max(diag H, 1e-12) + 1e-10·I) δ = −g by Cholesky across the warp;
+// returns δ_lane (0 on lanes >= V).  Lane i < V owns row i of the factor,
+// a private row of `scratch` (shared, (V+1)·kJStride words; the stride is
+// odd, so rows and columns are both free of bank conflicts), and lane V
+// the row −g, which the factorization turns into y = L⁻¹(−g): the forward
+// solve is the factor's recurrence on one more row.  Right-looking: at
+// step j the pivot comes from lane j and L[m][j] from lane m by shuffle,
+// and lane i subtracts L[i][j]·L[m][j] from its element (i, m), so every
+// element takes its subtractions over k = 0, 1, ... as a serial
+// factorization and forward solve do.  In the back substitution row r
+// subtracts its products L[k][r]·δ_k over k = r+1, r+2, ... once δ_{r+1}
+// is known (δ travels through `dl`, shared): the serial order again, so
+// the step equals a serial solve bit for bit.  The loops are rolled on
+// purpose: fully unrolled over register rows the solve alone was 16-80 KB
+// of code, and having every lane prepare its products for the back
+// substitution measured no faster than this.
+__device__ inline float damped_solve(const float* acc, float lam, int V,
+                                     int lane, float* scratch, float* dl) {
+  const int i = lane;
+  const bool row = i < V;
+  const bool mine = i <= V;                  // a factor row, or −g
+  float* Li = scratch + i * kJStride;
+  const int base = (i + 1) * (i + 2) / 2;    // column i+1 of the items
+  if (row) {
+    for (int m = 0; m < i; ++m) Li[m] = acc[base + 1 + m];
+  } else if (mine) {
+    for (int m = 0; m < V; ++m) Li[m] = -acc[(m + 1) * (m + 2) / 2];
+  }
+  const float hii = row ? acc[base + 1 + i] : 1.f;
+  const float d = hii > 1e-12f ? hii : 1e-12f;
+  float diag = hii + lam * d + 1e-10f;       // element (i, i), then L[i][i]
   for (int j = 0; j < V; ++j) {
-    const float hjj = Hu[tri_index(j, j, V)];
-    const float d = hjj > 1e-12f ? hjj : 1e-12f;
-    float s = hjj + lam * d + 1e-10f;
-    for (int k = 0; k < j; ++k) s = s - Lm[j * kMaxSlots + k] * Lm[j * kMaxSlots + k];
+    const float s = __shfl_sync(kFullWarp, diag, j);
     const float dj = sqrtf(s < 1e-20f ? 1e-20f : s);
-    Lm[j * kMaxSlots + j] = dj;
-    for (int i = j + 1; i < V; ++i) {  // divide, as ops/lm.py does
-      float t = Hu[tri_index(j, i, V)];
-      for (int k = 0; k < j; ++k) t = t - Lm[i * kMaxSlots + k] * Lm[j * kMaxSlots + k];
-      Lm[i * kMaxSlots + j] = t / dj;
+    float lij = 0.f;
+    if (mine && i > j) {
+      lij = Li[j] / dj;                      // divide, as ops/lm.py does
+      Li[j] = lij;
+    }
+    if (i == j) diag = dj;
+#pragma unroll 2
+    for (int m = j + 1; m < V; ++m) {
+      const float pr = lij * __shfl_sync(kFullWarp, lij, m);
+      if (mine && i > m) Li[m] = Li[m] - pr;
+      else if (i == m) diag = diag - pr;
     }
   }
-  for (int i = 0; i < V; ++i) {              // forward: L y = −g
-    float s = -g[i];
-    for (int k = 0; k < i; ++k) s = s - Lm[i * kMaxSlots + k] * delta[k];
-    delta[i] = s / Lm[i * kMaxSlots + i];
+  __syncwarp();
+  const float y = row ? scratch[V * kJStride + i] : 0.f;
+  float delta = 0.f;                          // back: Lᵀ δ = y
+  for (int r = V - 1; r >= 0; --r) {
+    if (i == r) {
+      float t = y;
+      for (int k = r + 1; k < V; ++k) t = t - scratch[k * kJStride + r] * dl[k];
+      delta = t / diag;
+      dl[r] = delta;
+    }
+    __syncwarp();
   }
-  for (int i = V - 1; i >= 0; --i) {          // back: Lᵀ δ = y
-    float s = delta[i];
-    for (int k = i + 1; k < V; ++k) s = s - Lm[k * kMaxSlots + i] * delta[k];
-    delta[i] = s / Lm[i * kMaxSlots + i];
-  }
+  return delta;
 }
 
 // The whole LM solve of one cluster.  On entry xs (shared) holds the
 // clipped start and the feature slots are staged (stage_slots); on exit
-// xs holds the solution.  Every lane returns the same LMOut.
-template <int D, int Prof, int Pose, class Pixels>
+// xs holds the solution.  Every lane returns the same LMOut.  VM: the
+// slot-count ceiling of a register instantiation (V <= VM), or 0.
+template <int D, int Prof, int Pose, int VM, class Pixels>
 __device__ LMOut lm_run(const Cluster& c, const LMConf& m, float* sm,
                         const CoreLayout& L, int lane, const Pixels& px) {
   const int V = c.V;
   float* xs = sm + L.xs;
   float* xt = sm + L.xt;
-  float* dl = sm + L.dl;
-  const int n_items = 1 + V + V * (V + 1) / 2;
+  const int n_items = (V + 1) * (V + 2) / 2;
   int iu[kItemsPerLane], iv[kItemsPerLane];
+  if constexpr (VM == 0) {
 #pragma unroll
-  for (int j = 0; j < kItemsPerLane; ++j) {
-    iu[j] = 0; iv[j] = 0;
-    if (lane + 32 * j < n_items) item_pair(lane + 32 * j, V, &iu[j], &iv[j]);
+    for (int j = 0; j < kItemsPerLane; ++j) {
+      iu[j] = 0; iv[j] = 0;
+      if (lane + 32 * j < n_items) item_pair(lane + 32 * j, V, &iu[j], &iv[j]);
+    }
   }
 
-  float* acc[2] = {sm + L.acc, sm + L.acc + kMaxItems};
+  // the two sweep sums, addressed from sm so that they stay shared-memory
+  // accesses (a pointer picked from an array would be a generic one)
+  auto acc = [&](int which) { return sm + L.acc + which * kMaxItems; };
   int cur = 0;
-  sweep<D, Prof, Pose>(c, xs, sm, L, acc[cur], lane, iu, iv, n_items, px);
-  float cost = acc[cur][0];
+  float cost = 0.f;
   float lam = m.lam0;
   int iters = 0;
   bool conv = false;
 
-  for (int it = 0; it < m.max_iter; ++it) {
-    if (lane == 0) damped_solve(acc[cur], lam, V, sm + L.chol, dl);
-    __syncwarp();
-    if (lane < V) xt[lane] = clip(xs[lane] + dl[lane], m.lo[lane], m.hi[lane]);
-    sweep<D, Prof, Pose>(c, xt, sm, L, acc[1 - cur], lane, iu, iv, n_items, px);
-    const float c_trial = acc[1 - cur][0];
+  // Trip −1 is the sweep at the start; every later trip solves for a step
+  // and sweeps the trial point.  One call site: the sweep is the bulk of
+  // the kernel's code, and a second inlined copy would double it.
+  for (int it = -1; it < m.max_iter; ++it) {
+    const bool first = it < 0;
+    if (!first) {
+      // the trial row doubles as the solve's δ, read back before it is set
+      const float delta = damped_solve(acc(cur), lam, V, lane, sm + L.jbuf, xt);
+      __syncwarp();
+      if (lane < V) xt[lane] = clip(xs[lane] + delta, m.lo[lane], m.hi[lane]);
+    }
+    float* out = acc(first ? cur : 1 - cur);
+    sweep<D, Prof, Pose, VM>(c, first ? xs : xt, sm, L, out, lane, iu, iv,
+                             n_items, px);
+    if (first) {
+      cost = out[0];
+      continue;
+    }
+    const float c_trial = out[0];
     const bool accept = c_trial < cost;
     // a rigid bucket's xtol norm includes its inert position slots
     float xnorm = Pose == kNoPose ? 0.f : c.xn, snorm = 0.f;

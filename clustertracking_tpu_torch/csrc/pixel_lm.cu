@@ -28,17 +28,25 @@
 // then y, then z), so a sweep decodes them with shifts and masks instead
 // of integer division.
 //
-// What bounds it on the H100 is the per-pixel arithmetic of the sweeps
-// (the shared core in lm_core.cuh).  Resident mode stages the in-mask
-// voxels' values beside their coordinates in shared memory (2·Npix words
-// reserved per warp, the mask's worst case), so nothing is read from
-// device memory inside the LM loop.  Streamed mode keeps only the core's
-// ~2k words per warp in shared memory, writes the list to a global scratch
-// row, and reads each listed voxel's value from the pixel array on every
-// sweep — coalesced along x, mostly from L2 — so any window up to the
-// routing cap runs, and an SM holds as many warps as registers allow.  On
-// config 4 that is 16 warps per SM against resident's 8, and streamed is
-// the faster mode (ops/pixel_lm.py picks by occupancy).
+// What bounds it on the H100: a solve costs what its warp executes and
+// waits for (the per-pixel model and Jacobian arithmetic, the cost/g/H
+// products, one damped Cholesky per iteration), not bytes.  At B = 2,048
+// the card holds most clusters at once and iteration counts spread 3x
+// around their mean, so a launch lasts about as long as its slowest
+// cluster's chain of sweeps and solves: what counts is one warp's latency
+// per iteration.  The shared core in lm_core.cuh keeps that chain short:
+// several pixels' chains interleaved per lane, products in register
+// accumulators, no warp barrier in the pixel loop, the Cholesky across
+// the warp.  Resident mode stages the in-mask voxels' values beside their
+// coordinates in shared memory (2·Npix words reserved per warp, the
+// mask's worst case), so nothing is read from device memory inside the LM
+// loop.  Streamed mode keeps only the core's ~2.1k words per warp in
+// shared memory, writes the list to a global scratch row, and reads each
+// listed voxel's value from the pixel array on every sweep — coalesced
+// along x, mostly from L2 — so any window up to the routing cap runs, and
+// an SM holds as many warps as registers allow.  Both modes sum in one
+// order and agree bit for bit; ops/pixel_lm.py picks the mode that holds
+// more warps per SM.
 //
 // Weights: every listed voxel weighs 1/norm (the mask·(1/norm) of the plain
 // version).  The mask is (off − rel)·(1/r) with explicit _rn intrinsics, as
@@ -138,15 +146,17 @@ __host__ __device__ inline CoreLayout warp_layout(int npix, bool streamed) {
   return core_layout<D, Prof, Pose>(streamed ? 0 : 2 * npix);
 }
 
-template <int D, bool Streamed, int Prof, int Pose>
-__global__ void pixel_lm_kernel(Problem p, int warps_per_block) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * warps_per_block + warp;
-  if (b >= p.B) return;
+// One warp, one block, one cluster: a warp that ends frees its place on
+// the SM for the next cluster at once (iteration counts spread 3x around
+// their mean, and a block of several warps would hold its shared memory
+// and registers until its slowest cluster ends).
+template <int D, bool Streamed, int Prof, int Pose, int VM>
+__global__ void __launch_bounds__(32, MinBlocks<VM>::N) pixel_lm_kernel(Problem p) {
+  extern __shared__ float sm[];
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
   const int npx = p.wz * p.wy * p.wx;
   const CoreLayout L = warp_layout<D, Prof, Pose>(npx, Streamed);
-  float* sm = smem + (size_t)warp * L.total;
   const int V = p.V, n = p.n;
   float* xs = sm + L.xs;
 
@@ -219,12 +229,12 @@ __global__ void pixel_lm_kernel(Problem p, int warps_per_block) {
   const float wc = 1.f / p.norm[b];
   LMOut res;
   if (Streamed) {
-    res = lm_run<D, Prof, Pose>(
+    res = lm_run<D, Prof, Pose, VM>(
         c, p.lm, sm, L, lane,
         StreamedPixels<D>{idx, pix, cnt, p.sy, p.sz, p.my, p.mx, p.wy, p.wx,
                           wc});
   } else {
-    res = lm_run<D, Prof, Pose>(
+    res = lm_run<D, Prof, Pose, VM>(
         c, p.lm, sm, L, lane,
         ResidentPixels<D>{idx, val, cnt, p.sy, p.sz, p.my, p.mx, wc});
   }
@@ -238,24 +248,20 @@ __global__ void pixel_lm_kernel(Problem p, int warps_per_block) {
   }
 }
 
-// Warps per block (up to 4, as many as the device's opt-in shared memory
-// holds) and dynamic shared memory of a launch; raises the kernel's
-// dynamic shared-memory limit when it passes 48 KB.
-template <int D, bool Streamed, int Prof, int Pose>
-cudaError_t launch_config(int npx, int* wpb, size_t* smem) {
-  const size_t warp_bytes =
-      sizeof(float) * (size_t)warp_layout<D, Prof, Pose>(npx, Streamed).total;
+// Dynamic shared memory of a launch (one warp per block); raises the
+// kernel's dynamic shared-memory limit when it passes 48 KB.
+// cudaErrorInvalidValue: one warp does not fit the device's blocks.
+template <int D, bool Streamed, int Prof, int Pose, int VM>
+cudaError_t launch_config(int npx, size_t* smem) {
+  *smem = sizeof(float) * (size_t)warp_layout<D, Prof, Pose>(npx, Streamed).total;
   int optin = 0, dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
-  *wpb = (int)((size_t)optin / warp_bytes);
-  if (*wpb > 4) *wpb = 4;
-  if (*wpb < 1) return cudaErrorInvalidValue;
-  *smem = warp_bytes * *wpb;
+  if (*smem > (size_t)optin) return cudaErrorInvalidValue;
   if (*smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(pixel_lm_kernel<D, Streamed, Prof, Pose>,
+    e = cudaFuncSetAttribute(pixel_lm_kernel<D, Streamed, Prof, Pose, VM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
     if (e != cudaSuccess) return e;
   }
@@ -263,60 +269,68 @@ cudaError_t launch_config(int npx, int* wpb, size_t* smem) {
 }
 
 // One instantiation's launch, occupancy and shared memory (op 0, 1, 2).
-template <int D, bool Streamed, int Prof, int Pose>
+template <int D, bool Streamed, int Prof, int Pose, int VM>
 int run(int op, Problem* p, cudaStream_t stream, int npx, int* out) {
   if (op == 2) {
     *out = warp_layout<D, Prof, Pose>(npx, Streamed).total;
     return 0;
   }
-  int wpb = 0, blocks = 0;
   size_t smem = 0;
-  cudaError_t e = launch_config<D, Streamed, Prof, Pose>(npx, &wpb, &smem);
+  cudaError_t e = launch_config<D, Streamed, Prof, Pose, VM>(npx, &smem);
   if (op == 1) {  // resident warps per SM (0: one warp does not fit)
     *out = 0;
     if (e == cudaErrorInvalidValue) return 0;
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, pixel_lm_kernel<D, Streamed, Prof, Pose>, 32 * wpb, smem);
-    *out = blocks * wpb;
-    return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, pixel_lm_kernel<D, Streamed, Prof, Pose, VM>, 32, smem);
   }
   if (e != cudaSuccess) return (int)e;
-  const int grid = (p->B + wpb - 1) / wpb;
-  pixel_lm_kernel<D, Streamed, Prof, Pose><<<grid, 32 * wpb, smem, stream>>>(*p, wpb);
+  pixel_lm_kernel<D, Streamed, Prof, Pose, VM><<<p->B, 32, smem, stream>>>(*p);
   return (int)cudaGetLastError();
 }
 
+// The gauss profile has register instantiations at each slot-count
+// ceiling; the other profiles, and V past the last ceiling, take the
+// tile instantiation.  V: the launch's slot count (occupancy and shared
+// memory are asked for a V too, since registers differ by instantiation).
 template <int D, bool Streamed, int Pose>
-int run_prof(int prof, int op, Problem* p, cudaStream_t s, int npx, int* out) {
+int run_prof(int prof, int V, int op, Problem* p, cudaStream_t s, int npx,
+             int* out) {
   switch (prof) {
-    case kGauss: return run<D, Streamed, kGauss, Pose>(op, p, s, npx, out);
-    case kRing: return run<D, Streamed, kRing, Pose>(op, p, s, npx, out);
-    case kHat: return run<D, Streamed, kHat, Pose>(op, p, s, npx, out);
-    case kDisc: return run<D, Streamed, kDisc, Pose>(op, p, s, npx, out);
-    case kInvSeries: return run<D, Streamed, kInvSeries, Pose>(op, p, s, npx, out);
+    case kGauss:
+      if (V <= kRegSlotsLow)
+        return run<D, Streamed, kGauss, Pose, kRegSlotsLow>(op, p, s, npx, out);
+      if (V <= kRegSlotsMid)
+        return run<D, Streamed, kGauss, Pose, kRegSlotsMid>(op, p, s, npx, out);
+      if (V <= kRegSlotsHigh)
+        return run<D, Streamed, kGauss, Pose, kRegSlotsHigh>(op, p, s, npx, out);
+      return run<D, Streamed, kGauss, Pose, 0>(op, p, s, npx, out);
+    case kRing: return run<D, Streamed, kRing, Pose, 0>(op, p, s, npx, out);
+    case kHat: return run<D, Streamed, kHat, Pose, 0>(op, p, s, npx, out);
+    case kDisc: return run<D, Streamed, kDisc, Pose, 0>(op, p, s, npx, out);
+    case kInvSeries: return run<D, Streamed, kInvSeries, Pose, 0>(op, p, s, npx, out);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool Streamed>
-int run_pose(int D, int prof, int pose, int op, Problem* p, cudaStream_t s,
-             int npx, int* out) {
+int run_pose(int D, int prof, int pose, int V, int op, Problem* p,
+             cudaStream_t s, int npx, int* out) {
   if (D == 2 && pose == kNoPose)
-    return run_prof<2, Streamed, kNoPose>(prof, op, p, s, npx, out);
+    return run_prof<2, Streamed, kNoPose>(prof, V, op, p, s, npx, out);
   if (D == 3 && pose == kNoPose)
-    return run_prof<3, Streamed, kNoPose>(prof, op, p, s, npx, out);
+    return run_prof<3, Streamed, kNoPose>(prof, V, op, p, s, npx, out);
   if (D == 3 && pose == kAxis3D)
-    return run_prof<3, Streamed, kAxis3D>(prof, op, p, s, npx, out);
+    return run_prof<3, Streamed, kAxis3D>(prof, V, op, p, s, npx, out);
   if (D == 3 && pose == kRotvec3D)
-    return run_prof<3, Streamed, kRotvec3D>(prof, op, p, s, npx, out);
+    return run_prof<3, Streamed, kRotvec3D>(prof, V, op, p, s, npx, out);
   return (int)cudaErrorInvalidValue;
 }
 
-int dispatch(int D, int streamed, int prof, int pose, int op, Problem* p,
-             cudaStream_t s, int npx, int* out) {
-  return streamed ? run_pose<true>(D, prof, pose, op, p, s, npx, out)
-                  : run_pose<false>(D, prof, pose, op, p, s, npx, out);
+int dispatch(int D, int streamed, int prof, int pose, int V, int op,
+             Problem* p, cudaStream_t s, int npx, int* out) {
+  return streamed ? run_pose<true>(D, prof, pose, V, op, p, s, npx, out)
+                  : run_pose<false>(D, prof, pose, V, op, p, s, npx, out);
 }
 
 int bits_for(int w) {  // bits that hold 0..w-1
@@ -332,17 +346,18 @@ int bits_for(int w) {  // bits that hold 0..w-1
 extern "C" int pixel_lm_smem_words(int D, int npix, int streamed, int prof,
                                    int pose) {
   int words = -1;
-  if (dispatch(D, streamed, prof, pose, 2, nullptr, nullptr, npix, &words) != 0)
+  if (dispatch(D, streamed, prof, pose, kMaxSlots, 2, nullptr, nullptr, npix,
+               &words) != 0)
     return -1;
   return words;
 }
 
-// Resident warps per SM of a launch, as the occupancy calculator gives
-// them (0 when one warp's shared memory exceeds a block's); returns the
-// CUDA error code (0 = cudaSuccess).
+// Resident warps per SM of a launch with V slots, as the occupancy
+// calculator gives them (0 when one warp's shared memory exceeds a
+// block's); returns the CUDA error code (0 = cudaSuccess).
 extern "C" int pixel_lm_occupancy(int D, int npix, int streamed, int prof,
-                                  int pose, int* warps_per_sm) {
-  return dispatch(D, streamed, prof, pose, 1, nullptr, nullptr, npix,
+                                  int pose, int V, int* warps_per_sm) {
+  return dispatch(D, streamed, prof, pose, V, 1, nullptr, nullptr, npix,
                   warps_per_sm);
 }
 
@@ -395,6 +410,6 @@ extern "C" int pixel_lm_launch(
     p.inv_r[0] = inv_ry; p.inv_r[1] = inv_rx;
   }
   int unused = 0;
-  return dispatch(D, streamed, prof, pose, 0, &p, (cudaStream_t)stream,
+  return dispatch(D, streamed, prof, pose, V, 0, &p, (cudaStream_t)stream,
                   wz * wy * wx, &unused);
 }

@@ -27,12 +27,14 @@ windows the fused 2D kernel cannot hold.  Here:
 Modes (``streaming``): resident keeps each warp's in-mask voxels and their
 values in shared memory; streamed keeps the voxel list in a global scratch
 and reads values from ``pixels`` on every sweep.  ``streaming=None`` picks
-by occupancy, the budget that decides the speed on an H100: resident
-unless its shared memory holds fewer warps per SM than streamed, whose
-warps are bound by registers (CUDA's occupancy calculator, per device and
-window).  Config 4's 9×13×13 window needs 20.5 KB per warp resident, which
-holds 8 warps per SM against streamed's 16, so it streams: 14.9 ms against
-24.8 ms per launch at B=16,384 (NVIDIA H100 80GB HBM3, 700 W).
+by occupancy: resident unless its shared memory holds fewer warps per SM
+than streamed, whose warps are bound by registers (CUDA's occupancy
+calculator, per device, window and instantiation).  Both modes give the
+same results bit for bit.  On an H100, config 4's 9×13×13 window (V = 14)
+holds 8 warps per SM either way (its instantiation's registers allow no
+more), so it stays resident; config 3c's 16³ window holds 5 resident
+against 12 streamed, so it streams (3.11 ms against 4.36 ms per launch at
+B=2,048, NVIDIA H100 80GB HBM3, 700 W).
 
 Both versions take the reference ``solve``'s arguments::
 
@@ -68,11 +70,14 @@ __all__ = ["KernelProblem", "check_pixel_lm_args", "kernel_mask",
 _CUDA_MAX_SLOTS = 20
 _CUDA_MAX_FEATURES = 32
 _CUDA_MAX_SERIES = 8
+_J_TILE_WORDS = 1152     # kJTileWords: the J tile, NPX pixels per lane
 # lm_core.cuh's Profile and PoseKind tags
 _PROFILE_TAGS = {"gauss": 0, "ring": 1, "hat": 2, "disc": 3}
 _INV_SERIES_TAG = 4
 POSE_NONE, POSE_NGON_2D, POSE_AXIS_3D, POSE_ROTVEC_3D = 0, 1, 2, 3
-# (device index, window shape, profile, pose) -> streaming=None's choice
+# (device index, window shape, profile, pose, slot count) ->
+# streaming=None's choice; the slot count picks the instantiation
+# (lm_core.cuh's slot-count ceilings), whose registers set the warps per SM
 _MODE_CHOICE = {}
 
 
@@ -178,12 +183,11 @@ def smem_words(ndim, npix, streamed, profile=0, pose=POSE_NONE):
     the voxel list and its values."""
     nx = _staged_extras(profile)
     feat_f, feat_i = 2 + 2 * ndim + nx, 1 + 2 * ndim + nx
-    core = (32 * (_CUDA_MAX_SLOTS + 1)
-            + 2 * (1 + _CUDA_MAX_SLOTS
-                   + _CUDA_MAX_SLOTS * (_CUDA_MAX_SLOTS + 1) // 2)
-            + 3 * _CUDA_MAX_SLOTS
+    core = (_J_TILE_WORDS
+            + (_CUDA_MAX_SLOTS + 1) * (_CUDA_MAX_SLOTS + 2)
+            + 2 * _CUDA_MAX_SLOTS
             + _CUDA_MAX_FEATURES * feat_f + 1 + _CUDA_MAX_FEATURES * feat_i
-            + _CUDA_MAX_SLOTS * _CUDA_MAX_SLOTS + _pose_words(pose))
+            + _pose_words(pose))
     return core + (0 if streamed else 2 * int(npix))
 
 
@@ -342,7 +346,7 @@ def _library():
         lib.pixel_lm_launch.restype = ctypes.c_int
         lib.pixel_lm_smem_words.argtypes = [ctypes.c_int] * 5
         lib.pixel_lm_smem_words.restype = ctypes.c_int
-        lib.pixel_lm_occupancy.argtypes = [ctypes.c_int] * 5 + [
+        lib.pixel_lm_occupancy.argtypes = [ctypes.c_int] * 6 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.pixel_lm_occupancy.restype = ctypes.c_int
         for d, pose in ((2, POSE_NONE), (3, POSE_NONE), (3, POSE_AXIS_3D),
@@ -357,11 +361,12 @@ def _library():
     return lib
 
 
-def occupancy(window_shape, device="cuda", profile=0, pose=POSE_NONE):
+def occupancy(window_shape, device="cuda", profile=0, pose=POSE_NONE,
+              n_slots=_CUDA_MAX_SLOTS):
     """Warps per SM of each mode of ``csrc/pixel_lm.cu`` for a window (and
-    a profile tag and pose kind) on a CUDA device, from the CUDA occupancy
-    calculator: {'resident': w, 'streamed': w}, 0 for a mode whose warp
-    does not fit a block."""
+    a profile tag, pose kind and slot count, which pick the instantiation)
+    on a CUDA device, from the CUDA occupancy calculator: {'resident': w,
+    'streamed': w}, 0 for a mode whose warp does not fit a block."""
     device = torch.device(device)
     lib = _library()
     out = {}
@@ -370,7 +375,8 @@ def occupancy(window_shape, device="cuda", profile=0, pose=POSE_NONE):
             warps = ctypes.c_int(0)
             rc = lib.pixel_lm_occupancy(
                 len(window_shape), int(np.prod(window_shape)),
-                int(mode == "streamed"), profile, pose, ctypes.byref(warps))
+                int(mode == "streamed"), profile, pose, int(n_slots),
+                ctypes.byref(warps))
             if rc != 0:
                 raise RuntimeError(f"pixel_lm: occupancy query failed, "
                                    f"cudaError {rc}")
@@ -378,13 +384,13 @@ def occupancy(window_shape, device="cuda", profile=0, pose=POSE_NONE):
     return out
 
 
-def _default_streaming(window_shape, device, profile, pose):
+def _default_streaming(window_shape, device, profile, pose, n_slots):
     key = (device.index if device.index is not None
            else torch.cuda.current_device(), tuple(window_shape), profile,
-           pose)
+           pose, int(n_slots))
     if key not in _MODE_CHOICE:
         _MODE_CHOICE[key] = pick_streaming(
-            occupancy(window_shape, device, profile, pose))
+            occupancy(window_shape, device, profile, pose, n_slots))
     return _MODE_CHOICE[key]
 
 
@@ -425,14 +431,14 @@ def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
     f32, i32 = torch.float32, torch.int32
     lib = _library()
     kp = KernelProblem(vect0, layout, model, constraint, lo, hi, device)
+    Vk = kp.x0.shape[1]
     if streaming is None:
         streaming = _default_streaming(window_shape, device, kp.profile,
-                                       kp.pose)
+                                       kp.pose, Vk)
     streaming = bool(streaming)
     scratch = (torch.empty((B, wz * wy * wx), dtype=i32, device=device)
                if streaming else None)
     valid_i = valid.to(i32)
-    Vk = kp.x0.shape[1]
     x_out = torch.empty((B, Vk), dtype=f32, device=device)
     cost = torch.empty((B,), dtype=f32, device=device)
     n_iter = torch.empty((B,), dtype=i32, device=device)

@@ -486,7 +486,7 @@ def refine_leastsq(
     backend_find: str = "host",
     lm_backend: str = "auto",
     mesh=None,
-    device="cpu",
+    device=None,
 ) -> "pd.DataFrame":
     """Simultaneously refine overlapping features cluster-by-cluster.
 
@@ -495,7 +495,9 @@ def refine_leastsq(
     adds/updates the refined parameter columns, 'cluster',
     'cluster_size', 'cost' (NaN = rejected fit), 'fit_converged' and
     'fit_n_iter'.  Frames are stacked per ``frames_per_dispatch`` chunk
-    onto ``device``, where every bucket is solved.
+    onto ``device``, where every bucket is solved: None (the default) is
+    'cuda', and raises ``RuntimeError`` where no CUDA device exists; pass
+    ``device="cpu"`` to run on the host.
 
     ``lm_backend``: 'auto' (on CUDA, each bucket's kernel route:
     ``fused_lm_2d`` for 2D windows, ``window_gather`` then ``pixel_lm``
@@ -514,6 +516,13 @@ def refine_leastsq(
             "mesh= (multi-device fits) is not ported yet (ROADMAP queue 1 "
             "item 13)"
         )
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "refine_leastsq: no CUDA device is available; the fit runs "
+                "on the GPU unless device='cpu' is passed"
+            )
+        device = "cuda"
     device = torch.device(device)
     if pos_columns is None:
         pos_columns = guess_pos_columns(f)

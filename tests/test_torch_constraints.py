@@ -17,14 +17,20 @@ constrained fits, held to the JAX package on the same numpy inputs.
 Every constraint is built once, in the reference, and carried into the
 port by ``interop.constraint_from_reference``.
 """
+import functools
+
 import numpy as np
 import pandas as pd
 import pytest
 import torch
 
-from clustertracking_tpu_torch import artificial, refine_leastsq
+import clustertracking_tpu_torch as ctt
+from clustertracking_tpu_torch import artificial
 from clustertracking_tpu_torch import constraints as pc
 from clustertracking_tpu_torch.interop import constraint_from_reference
+
+# the port's refine_leastsq runs on CUDA unless asked for the CPU
+refine_leastsq = functools.partial(ctt.refine_leastsq, device="cpu")
 
 torch.set_num_threads(1)
 

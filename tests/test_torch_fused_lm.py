@@ -233,6 +233,156 @@ def test_kernel_mask_matches_radius_mask_on_the_fixtures():
     np.testing.assert_array_equal(km.numpy(), np.asarray(jm))
 
 
+# The edges of the kernels' design (csrc/lm_core.cuh): a slot count at each
+# ceiling of the register instantiations (8, 10, 14) and one past it, and
+# the least and most the kernels take (1, 19); an in-mask pixel count of 0,
+# 1, 31, 32 and 33 (a warp's 32 lanes, four pixels to a lane) and the whole
+# window; one feature; a padded feature (fvalid 0); a window row wider than
+# a warp.  id -> (n, modes, window, radius, the positions' fraction of a
+# pixel or None for draw_cluster's own, fvalid of the last feature).
+EDGE_CASES = {
+    "V1": (1, {"y": "const", "x": "const"}, (9, 9), 3.0, None, 1.0),
+    "V8": (2, {"size": "var"}, (9, 9), 3.0, None, 1.0),
+    "V9": (2, {"size": "var", "background": "cluster"}, (9, 9), 3.0, None,
+           1.0),
+    "V10": (3, {"background": "cluster"}, (11, 11), 3.0, None, 1.0),
+    "V11": (3, {"background": "cluster", "size": "cluster"}, (11, 11), 3.0,
+            None, 1.0),
+    "V14": (4, {"background": "cluster", "size": "cluster"}, (13, 13), 3.0,
+            None, 1.0),
+    "V15": (5, {}, (13, 13), 3.0, None, 1.0),
+    "V19": (6, {"background": "cluster"}, (15, 15), 3.0, None, 1.0),
+    "npix0": (1, {"y": "const", "x": "const"}, (9, 9), 0.3, (0.0, 0.5), 1.0),
+    "npix1": (1, {"y": "const", "x": "const"}, (9, 9), 0.3, (0.0, 0.0), 1.0),
+    "npix31": (1, {}, (9, 9), 3.2, (0.25, 0.25), 1.0),
+    "npix32": (1, {}, (9, 9), 3.1, (0.0, 0.25), 1.0),
+    "npix33": (1, {}, (9, 9), 3.25, (0.0, 0.25), 1.0),
+    "whole_window": (1, {}, (9, 9), 20.0, (0.0, 0.0), 1.0),
+    "padded_feature": (2, {}, (9, 9), 3.0, None, 0.0),
+    "wide_row": (2, {}, (5, 40), 3.0, None, 1.0),
+}
+EDGE_NPIX = {"npix0": 0, "npix1": 1, "npix31": 31, "npix32": 32,
+             "npix33": 33, "whole_window": 81}
+
+
+def edge_case_inputs(case, B=4, seed=3):
+    """The fused solve's arguments for an EDGE_CASES entry, on the CPU:
+    clusters of n Gaussians (signal 100, size 1.8, separation 4) near the
+    centre of 64×128 frames with noise sigma 1, starts ±0.2 px off."""
+    n, modes, window, radius, frac, fv_last = EDGE_CASES[case]
+    rng = np.random.default_rng(seed)
+    lay = build_layout(get_model("gauss"), 2, True, n, modes)
+    frames = np.zeros((B, 64, 128), np.float32)
+    params0 = np.zeros((B, n, lay.n_params), np.float32)
+    for b in range(B):
+        center = np.array([32.0, 40.0])
+        if frac is None:
+            center = center + rng.uniform(-1, 1, 2)
+        true = artificial.draw_cluster(
+            frames[b], center, size=1.8, separation=4.0, n=n, signal=100.0,
+            angle=rng.uniform(0, np.pi))
+        params0[b, :, 1] = 100.0
+        params0[b, :, 2:4] = true + rng.uniform(-0.2, 0.2, true.shape)
+        if frac is not None:   # the gather-time position fixes the mask
+            params0[b, :, 2:4] = center + np.asarray(frac)
+        params0[b, :, 4] = 1.8
+    frames += rng.normal(0.0, 1.0, frames.shape).astype(np.float32)
+    pos0 = params0[..., 2:4].copy()
+    origin = origins_for(_t(pos0), window, frames.shape[1:])
+    lo, hi = _slot_bounds(lay, window, frames.shape[1:])
+    fvalid = torch.ones(B, n)
+    fvalid[:, -1] = fv_last
+    args = (lay.vect_from_params(_t(params0)), _t(params0), _t(frames),
+            _t(np.arange(B, dtype=np.int32)), _t(pos0), origin,
+            _t(params0[..., 1].max(axis=1)), torch.ones(B, dtype=torch.bool),
+            fvalid)
+    kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
+              lo=lo, hi=hi, radius=(radius, radius), max_iter=MAX_IT)
+    return lay, args, kw
+
+
+def jax_lm_on_window(lay, args, kw):
+    """The reference's ``lm_solve`` on the same window pixels and the same
+    fit mask as the port's plain version (2D isotropic gauss layouts)."""
+    import jax.numpy as jnp
+
+    from clustertracking_tpu.models import build_layout as jax_build_layout
+    from clustertracking_tpu.models import get_model as jax_get_model
+    from clustertracking_tpu.ops.lm import lm_solve as jax_lm_solve
+    from clustertracking_tpu.ops.residual import make_model_fns as jax_fns
+    from clustertracking_tpu_torch.ops.gather import gather_stack
+
+    vect0, params0, frames, fidx, pos0, origin, norm, valid, fvalid = args
+    window = kw["window_shape"]
+    jlay = jax_build_layout(jax_get_model("gauss"), 2, True, lay.n_features,
+                            dict(zip(lay.param_names, lay.modes)))
+    fns = jax_fns(jax_get_model("gauss"), jlay, window)
+    pixels = gather_stack(frames, fidx, origin, window)
+    mask = kernel_mask(pos0, origin, window, kw["radius"], fvalid)
+    return jax_lm_solve(
+        fns.residual, fns.residual_jac, jnp.asarray(vect0.numpy()),
+        tuple(jnp.asarray(a.numpy()) for a in (
+            params0, pixels, mask, origin, norm, fvalid)),
+        max_iter=kw["max_iter"], lower=jnp.asarray(kw["lo"]),
+        upper=jnp.asarray(kw["hi"]), valid=jnp.asarray(valid.numpy()))
+
+
+def assert_edge_results_close(case, lay, res, ref, atol, rtol):
+    """Positions within ``atol`` px, the other slots and the cost within
+    ``rtol`` (relative; the background, ~0, within rtol of the signal
+    scale), npix as the case fixes it."""
+    pos = sorted({int(s) for p in lay.pos_param_idx
+                  for s in lay.slot_idx[:, p] if s >= 0})
+    bg = [int(lay.slot_idx[0, 0])] if lay.slot_idx[0, 0] >= 0 else []
+    other = [s for s in range(lay.n_slots) if s not in pos + bg]
+    x = res.x.cpu().numpy()
+    rx = np.asarray(ref.x.cpu() if hasattr(ref.x, "cpu") else ref.x)
+    np.testing.assert_allclose(x[:, pos], rx[:, pos], atol=atol, rtol=0)
+    np.testing.assert_allclose(x[:, other], rx[:, other], rtol=rtol, atol=0)
+    np.testing.assert_allclose(x[:, bg], rx[:, bg], rtol=0, atol=rtol * 100)
+    rcost = np.asarray(ref.cost.cpu() if hasattr(ref.cost, "cpu")
+                       else ref.cost)
+    np.testing.assert_allclose(res.cost.cpu().numpy(), rcost, rtol=rtol,
+                               atol=1e-12)
+    if case in EDGE_NPIX:
+        assert (res.npix.cpu().numpy() == EDGE_NPIX[case]).all()
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_reference_matches_jax_at_the_design_edges(case):
+    """``fused_lm_2d_reference`` vs the reference's ``lm_solve`` on every
+    EDGE_CASES entry (6 iterations): positions 1e-4 px, the other slots
+    and the cost 1e-4 relative, n_iter and converged equal."""
+    lay, args, kw = edge_case_inputs(case)
+    res = fused_lm_2d_reference(*args, **kw)
+    jres = jax_lm_on_window(lay, args, kw)
+    assert_edge_results_close(case, lay, res, jres, POS_ATOL, RTOL)
+    np.testing.assert_array_equal(res.n_iter.numpy(), np.asarray(jres.n_iter))
+    np.testing.assert_array_equal(res.converged.numpy(),
+                                  np.asarray(jres.converged))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_kernel_matches_plain_at_the_design_edges_on_the_card(case):
+    """csrc/fused_lm_2d.cu vs ``fused_lm_2d_reference`` on every EDGE_CASES
+    entry, 60 iterations: positions 1e-3 px, the other slots and the cost
+    1e-3 relative, npix exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lay, args, kw = edge_case_inputs(case, B=64)
+    args = [a.to("cuda") for a in args]
+    kw["max_iter"] = 60
+    before = fused_lm_2d.launches
+    res_k = fused_lm_2d(*args, **kw)
+    res_p = fused_lm_2d_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_lm_2d.launches == before + 1
+    assert_edge_results_close(case, lay, res_k, res_p, 1e-3, 1e-3)
+    np.testing.assert_array_equal(res_k.npix.cpu().numpy(),
+                                  res_p.npix.cpu().numpy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [(13, 13), (41, 41)])
 def test_kernel_matches_plain_on_the_card(window):

@@ -176,15 +176,16 @@ def test_kernel_route_names_the_route(ndim, window, modes, expect):
 
 def test_mode_choice_against_the_measured_budget():
     """Shared memory per warp as csrc/pixel_lm.cu lays it out, and the rule
-    streaming=None applies to the occupancy calculator's warps per SM.  On
-    an H100 config 4's resident layout (20.5 KB per warp) holds 8 warps per
-    SM against streamed's 16 (bound by registers), and streamed is the
-    faster mode there, so it streams; at equal occupancy resident stays; a
-    window whose resident warp fits no block streams."""
-    assert smem_words(2, 0, True) == 1947   # fused_lm_2d.cu's core
-    assert smem_words(3, 0, True) == 2075
-    assert smem_words(3, 1521, False) == 2075 + 2 * 1521
-    assert 4 * smem_words(3, 1521, False) == 20468   # bytes per warp
+    streaming=None applies to the occupancy calculator's warps per SM: a
+    mode that holds fewer warps per SM than streamed (bound by registers)
+    streams, as config 3c's 16³ window does on an H100 (5 against 12); at
+    equal occupancy resident stays, as config 4's does there (20.7 KB per
+    warp, 8 warps per SM either way); a window whose resident warp fits no
+    block streams."""
+    assert smem_words(2, 0, True) == 2007   # fused_lm_2d.cu's core
+    assert smem_words(3, 0, True) == 2135
+    assert smem_words(3, 1521, False) == 2135 + 2 * 1521
+    assert 4 * smem_words(3, 1521, False) == 20708   # bytes per warp
     assert pick_streaming({"resident": 8, "streamed": 16})
     assert not pick_streaming({"resident": 16, "streamed": 16})
     assert pick_streaming({"resident": 0, "streamed": 16})
@@ -280,7 +281,7 @@ def test_kernel_matches_plain_on_the_card(streaming):
     res_p = pixel_lm_reference(*args, **kw)
     torch.cuda.synchronize()
     if streaming is None:
-        streaming = pick_streaming(occupancy(WINDOW_3D))
+        streaming = pick_streaming(occupancy(WINDOW_3D, n_slots=lay.n_slots))
     assert pixel_lm.launches_streamed == before + int(streaming)
     _agree(res_k, res_p, [2, 3, 4, 5, 6, 7])
     assert (res_k.cost.cpu().numpy()[~valid] == 0).all()
@@ -313,3 +314,133 @@ def test_streamed_2d_route_matches_plain_route_on_the_card():
     np.testing.assert_allclose(rk.cpu().numpy(), rp.cpu().numpy(),
                                rtol=5e-4)  # rms; 1e-3 on cost
     np.testing.assert_array_equal(ck.cpu().numpy(), cp.cpu().numpy())
+
+
+# The design's edges in 3D (csrc/lm_core.cuh's register ceilings 8, 10, 14
+# and one past each): id -> (isotropic, modes) of a two-feature layout.
+EDGE_IT = 8
+EDGE_3D = {
+    "V8": (True, {}),
+    "V9": (True, {"background": "cluster"}),
+    "V10": (True, {"size": "var"}),
+    "V11": (True, {"size": "var", "background": "cluster"}),
+    "V14": (False, dict(MODES_3D)),
+    "V15": (False, dict(MODES_3D, background="cluster")),
+}
+
+
+def _edge_inputs_3d(case, B=4, shape=(32, 48, 48), window=(7, 9, 9)):
+    """Config 4's dimers with noise, fit with an EDGE_3D layout (the
+    isotropic ones take size_y as their one size)."""
+    iso, modes = EDGE_3D[case]
+    frames, fidx, params0, _, _ = example_batch_3d(B=B, shape=shape)
+    frames = frames + np.random.default_rng(7).normal(
+        0.0, 1.0, frames.shape).astype(np.float32)
+    if iso:
+        params0 = np.ascontiguousarray(params0[..., :6])
+    lay = build_layout(get_model("gauss"), 3, iso, 2, modes)
+    assert lay.n_slots == int(case[1:])
+    args, kw = _inputs(lay, frames, fidx, params0, window, RADIUS_3D,
+                       np.ones(B, bool))
+    kw["max_iter"] = EDGE_IT
+    return lay, args, kw
+
+
+@pytest.mark.parametrize("case", list(EDGE_3D))
+def test_reference_matches_jax_at_the_design_edges_3d(case):
+    """``pixel_lm_reference`` vs the reference's ``lm_solve`` on the same
+    pixels and mask, at each EDGE_3D slot count (EDGE_IT iterations, short
+    of the plateau where rounding moves the stopping step): positions and
+    sizes 5e-4 px (the isotropic layouts fit an anisotropic blob, where the
+    two frameworks' summation orders show at 3e-4 px), the background 5e-3
+    (on noise of sigma 1; 1.7e-3 at worst), signal and cost 1e-3 relative,
+    n_iter and converged equal."""
+    import jax.numpy as jnp
+
+    from clustertracking_tpu.models import build_layout as jax_build_layout
+    from clustertracking_tpu.models import get_model as jax_get_model
+    from clustertracking_tpu.ops.lm import lm_solve as jax_lm_solve
+    from clustertracking_tpu.ops.residual import make_model_fns as jax_fns
+    from clustertracking_tpu_torch.ops.pixel_lm import kernel_mask
+
+    lay, args, kw = _edge_inputs_3d(case)
+    vect0, params0, pixels, pos, origin, norm, valid, _ = args
+    res = pixel_lm_reference(*args, **kw)
+    jlay = jax_build_layout(jax_get_model("gauss"), 3, lay.isotropic, 2,
+                            dict(zip(lay.param_names, lay.modes)))
+    fns = jax_fns(jax_get_model("gauss"), jlay, kw["window_shape"])
+    mask = kernel_mask(pos, origin, kw["window_shape"], kw["radius"],
+                       torch.ones(len(norm), 2))
+    jres = jax_lm_solve(
+        fns.residual, fns.residual_jac, jnp.asarray(vect0.numpy()),
+        tuple(jnp.asarray(a.numpy()) for a in (params0, pixels, mask,
+                                               origin, norm)),
+        max_iter=EDGE_IT, lower=jnp.asarray(kw["lo"]),
+        upper=jnp.asarray(kw["hi"]), valid=jnp.asarray(valid.numpy()))
+    sig = [int(s) for s in lay.slot_idx[:, 1]]
+    bg = [int(lay.slot_idx[0, 0])] if lay.slot_idx[0, 0] >= 0 else []
+    other = [s for s in range(lay.n_slots) if s not in sig + bg]
+    x, jx = res.x.numpy(), np.asarray(jres.x)
+    np.testing.assert_allclose(x[:, other], jx[:, other], atol=5e-4, rtol=0)
+    np.testing.assert_allclose(x[:, sig], jx[:, sig], rtol=1e-3, atol=0)
+    np.testing.assert_allclose(x[:, bg], jx[:, bg], rtol=0, atol=5e-3)
+    np.testing.assert_allclose(res.cost.numpy(), np.asarray(jres.cost),
+                               rtol=1e-3)
+    np.testing.assert_array_equal(res.n_iter.numpy(), np.asarray(jres.n_iter))
+    np.testing.assert_array_equal(res.converged.numpy(),
+                                  np.asarray(jres.converged))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("case", list(EDGE_3D))
+def test_kernel_matches_plain_at_the_design_edges_3d_on_the_card(
+        case, streaming):
+    """csrc/pixel_lm.cu, resident and streamed, vs ``pixel_lm_reference``
+    at each EDGE_3D slot count (B=64, 60 iterations), and the two modes'
+    results bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lay, args, kw = _edge_inputs_3d(case, B=64, shape=(32, 96, 96))
+    args = [a.to("cuda") if a is not None else None for a in args]
+    kw["max_iter"] = 60
+    res_k = pixel_lm(*args, **kw, streaming=streaming)
+    res_p = pixel_lm_reference(*args, **kw)
+    res_o = pixel_lm(*args, **kw, streaming=not streaming)
+    torch.cuda.synchronize()
+    pos = sorted({int(s) for p in lay.pos_param_idx
+                  for s in lay.slot_idx[:, p]})
+    _agree(res_k, res_p, pos)
+    for a, b in zip(res_k, res_o):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("case", ["V1", "V19", "npix0", "npix1", "npix31",
+                                  "npix32", "npix33", "whole_window",
+                                  "padded_feature", "wide_row"])
+def test_kernel_matches_plain_at_the_design_edges_2d_on_the_card(
+        case, streaming):
+    """csrc/pixel_lm.cu on gathered 2D windows, both modes, on the fused
+    kernel's edge cases (tests/test_torch_fused_lm.py::EDGE_CASES): the
+    least and most slots, the in-mask counts around a warp's 32 lanes, a
+    padded feature, a window row wider than a warp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_fused_lm import (
+        assert_edge_results_close, edge_case_inputs)
+
+    lay, args, kw = edge_case_inputs(case, B=64)
+    vect0, params0, frames, fidx, pos0, origin, norm, valid, fvalid = args
+    pixels = gather_stack(frames, fidx, origin, kw["window_shape"])
+    args = [a.to("cuda") for a in (vect0, params0, pixels, pos0, origin,
+                                   norm, valid, fvalid)]
+    kw["max_iter"] = 60
+    res_k = pixel_lm(*args, **kw, streaming=streaming)
+    res_p = pixel_lm_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert_edge_results_close(case, lay, res_k, res_p, 1e-3, 1e-3)
+    np.testing.assert_array_equal(res_k.npix.cpu().numpy(),
+                                  res_p.npix.cpu().numpy())
+

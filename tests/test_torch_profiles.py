@@ -222,7 +222,7 @@ def test_custom_model_refine_takes_lm_solve():
     with diagnostics.collect() as stats:
         out = refine_leastsq(f, img, diameter=9, separation=6.0,
                              fit_function=_custom(),
-                             param_val={"size": 2.0})
+                             param_val={"size": 2.0}, device="cpu")
     assert {b.backend for b in stats.batches} == {"cpu-torch"}
     assert np.abs(out[["y", "x"]].to_numpy() - true).max() < 1e-3
 

@@ -15,6 +15,8 @@ float32 on both sides with sums in another order:
   the two frameworks' rounding moves it by a few iterations; those counts
   are logged in ROADMAP queue 3, not compared here.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
@@ -32,6 +34,9 @@ from clustertracking_tpu_torch.entry import (
     MODES_3D, RADIUS_3D, WINDOW_3D, example_batch, example_batch_3d)
 from clustertracking_tpu_torch.models import get_model
 from clustertracking_tpu_torch.refine import _bucket_solver
+
+# the port's refine_leastsq runs on CUDA unless asked for the CPU
+refine_cpu = functools.partial(ctt.refine_leastsq, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -136,7 +141,7 @@ def test_refine_leastsq_3d_multichunk_matches_jax_pallas():
     kw = dict(diameter=(7, 9, 9), separation=5.0, param_mode={
         "size_z": "var", "size_y": "var", "size_x": "var"})
     with diagnostics.collect() as stats:
-        out = ctt.refine_leastsq(f, img, lm_backend="kernel", **kw)
+        out = refine_cpu(f, img, lm_backend="kernel", **kw)
     jout = ct.refine_leastsq(f, img, lm_backend="pallas", **kw)
     assert {b.backend for b in stats.batches} == {"cpu-gathered"}
     assert out["cost"].notna().all()
@@ -280,7 +285,7 @@ SCENES = {
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_refine_leastsq_matches_jax(scene):
     f, img, kw, signal = SCENES[scene]()
-    out = ctt.refine_leastsq(f, img, **kw)
+    out = refine_cpu(f, img, **kw)
     jout = ct.refine_leastsq(f, img, lm_backend="xla", **kw)
     _compare_frames(out, jout, signal)
     # the reference's own acceptance semantics hold on the port's output
@@ -311,7 +316,7 @@ def test_refine_leastsq_spill_to_scipy_matches_jax():
     kw = dict(diameter=9, separation=5.5, param_val={"size": 2.0},
               max_cluster_size=4, compute_error=True)
     with diagnostics.collect() as stats:
-        out = ctt.refine_leastsq(f, img, **kw)
+        out = refine_cpu(f, img, **kw)
     jout = ct.refine_leastsq(f, img, lm_backend="xla", **kw)
     assert [b.backend for b in stats.batches] == ["scipy"]
     cols = ["y", "x", "signal", "size", "cost", "fit_converged",
@@ -332,7 +337,7 @@ def test_refine_leastsq_error_columns_match_jax():
     f["frame"] = 0
     kw = dict(diameter=11, separation=6.5, compute_error=True,
               param_val={"size": 3.0})
-    out = ctt.refine_leastsq(f, img, **kw)
+    out = refine_cpu(f, img, **kw)
     jout = ct.refine_leastsq(f, img, lm_backend="xla", **kw)
     _compare_frames(out, jout, 200.0)
     for c in ("y_std", "x_std", "signal_std"):
@@ -344,11 +349,29 @@ def test_refine_leastsq_error_columns_match_jax():
 def test_refine_leastsq_records_dispatches():
     f, img, kw, _ = _video_scene()
     with diagnostics.collect() as stats:
-        ctt.refine_leastsq(f, img, **kw)
+        refine_cpu(f, img, **kw)
     summary = stats.summary()
     assert summary["n_clusters"] == 9
     assert {b.backend for b in stats.batches} == {"cpu-torch"}
     assert {b.cluster_size for b in stats.batches} == {1, 2}
+
+
+def test_refine_leastsq_runs_on_cuda_unless_asked_for_the_cpu():
+    """With no ``device`` the fit runs on CUDA and, where there is no CUDA
+    device, raises instead of carrying on on the host; ``device="cpu"``
+    runs there."""
+    f, img, kw, _ = _video_scene()
+    if torch.cuda.is_available():
+        with diagnostics.collect() as stats:
+            ctt.refine_leastsq(f, img, **kw)
+        assert all(b.backend.startswith("cuda") for b in stats.batches)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ctt.refine_leastsq(f, img, **kw)
+    with diagnostics.collect() as stats:
+        out = ctt.refine_leastsq(f, img, device="cpu", **kw)
+    assert {b.backend for b in stats.batches} == {"cpu-torch"}
+    assert out["cost"].notna().all()
 
 
 def test_spill_profile_of_a_custom_model_takes_numpy():
@@ -374,7 +397,7 @@ def test_refine_leastsq_refuses_what_is_not_ported(kw, match):
     base.pop("param_mode")
     base.update(kw)
     with pytest.raises(NotImplementedError, match=match):
-        ctt.refine_leastsq(f, img, **base)
+        refine_cpu(f, img, **base)
 
 
 def test_nan_trap_names_the_offending_cluster():
@@ -383,6 +406,6 @@ def test_nan_trap_names_the_offending_cluster():
     img[30:36, 28:38] = np.nan
     with diagnostics.debug_nans():
         with pytest.raises(FloatingPointError, match="first offender"):
-            ctt.refine_leastsq(f, img, **kw)
-    out = ctt.refine_leastsq(f, img, **kw)  # trap off: rejected silently
+            refine_cpu(f, img, **kw)
+    out = refine_cpu(f, img, **kw)  # trap off: rejected silently
     assert out["cost"].isna().all()

@@ -62,6 +62,17 @@ KINDS = {
     "2d_dimer_fit_dist": (lambda: dimer_global(2, mode="cluster"),
                           (64, 64), (13, 13), (4.5, 4.5), 2.0),
 }
+# Each pose kind on the other side of a register ceiling of the kernels
+# (csrc/lm_core.cuh: 8, 10, 14 slots): the kinds above have compact lengths
+# 5, 6, 7, 10 and 4; with these parameter modes they have 9 (n-gon), 9
+# (axis), 14 and 15 (rotation vector).
+MODES = {
+    "2d_trimer_sizes": ("2d_trimer", {"size": "var"}, 9),
+    "3d_dimer_sizes": ("3d_dimer", {"size": "var"}, 9),
+    "3d_tetramer_sizes": ("3d_tetramer", {"size": "var"}, 14),
+    "3d_tetramer_sizes_bg": ("3d_tetramer",
+                             {"size": "var", "background": "cluster"}, 15),
+}
 
 
 def _t(a):
@@ -69,11 +80,13 @@ def _t(a):
 
 
 def _scene(kind, B=4, seed=0, noise=0.5):
+    kind, modes, vk = MODES.get(kind, (kind, {}, None))
     make_con, shape, window, radius, size = KINDS[kind]
     con = make_con()
     n, D = con.cluster_size, con.ndim
     rng = np.random.default_rng(seed)
-    lay = build_layout(get_model("gauss"), D, True, n, {})
+    lay = build_layout(get_model("gauss"), D, True, n, modes)
+    assert vk is None or len(rigid_kernel_slots(lay, con)[1]) == vk
     frames = np.zeros((B,) + shape, np.float32)
     params0 = np.zeros((B, n, lay.n_params), np.float32)
     truth = np.zeros((B, n, D))
@@ -128,7 +141,8 @@ def _pallas(lay, args, kw, fused, frame_shape):
     from clustertracking_tpu.ops.pallas_lm import make_pallas_lm
 
     jlay = jax_build_layout(jax_get_model("gauss"), lay.ndim, True,
-                            lay.n_features, {})
+                            lay.n_features,
+                            dict(zip(lay.param_names, lay.modes)))
     solve = make_pallas_lm(
         jax_get_model("gauss"), jlay, kw["window_shape"], kw["lo"],
         kw["hi"], kw["radius"], max_iter=MAX_IT, interpret=True,
@@ -160,7 +174,8 @@ def _assert_matches(lay, con, res, jres, valid):
                                   np.asarray(jres.npix)[valid])
 
 
-@pytest.mark.parametrize("kind", ["2d_dimer", "2d_dimer_fit_dist"])
+@pytest.mark.parametrize("kind", ["2d_dimer", "2d_dimer_fit_dist",
+                                  "2d_trimer_sizes"])
 def test_fused_rigid_reference_matches_pallas(kind):
     """The 2D n-gon pose through the fused-gather kernel (the TPU's config
     3 hot path), fixed and fitted distance."""
@@ -174,7 +189,9 @@ def test_fused_rigid_reference_matches_pallas(kind):
     _assert_matches(lay, con, res, jres, valid)
 
 
-@pytest.mark.parametrize("kind", ["3d_dimer", "3d_tetramer"])
+@pytest.mark.parametrize("kind", ["3d_dimer", "3d_tetramer",
+                                  "3d_dimer_sizes", "3d_tetramer_sizes",
+                                  "3d_tetramer_sizes_bg"])
 def test_pixel_rigid_reference_matches_pallas(kind):
     """The 3D axis pose (dimer) and rotation-vector pose (tetramer)
     through the pixel-input kernel."""
@@ -230,7 +247,9 @@ def test_bucket_solver_matches_jax(config, lm_backend):
 @pytest.mark.parametrize("kind,expect", [
     ("2d_dimer", "fused"), ("2d_trimer", "fused"),
     ("3d_dimer", "gathered"), ("3d_tetramer", "gathered"),
-    ("2d_dimer_fit_dist", "fused"),
+    ("2d_dimer_fit_dist", "fused"), ("2d_trimer_sizes", "fused"),
+    ("3d_dimer_sizes", "gathered"), ("3d_tetramer_sizes", "gathered"),
+    ("3d_tetramer_sizes_bg", "gathered"),
 ])
 def test_kernel_route_takes_rigid_buckets(kind, expect):
     con, lay, _, _, _, _, window, _, _ = _scene(kind, B=1)
@@ -290,6 +309,11 @@ def _agree(res_k, res_p, lay, con):
     ("2d_dimer_fit_dist", "fused"),
     ("3d_dimer", "resident"), ("3d_dimer", "streamed"),
     ("3d_tetramer", "resident"), ("3d_tetramer", "streamed"),
+    ("2d_trimer_sizes", "fused"),
+    ("3d_dimer_sizes", "resident"), ("3d_dimer_sizes", "streamed"),
+    ("3d_tetramer_sizes", "resident"), ("3d_tetramer_sizes", "streamed"),
+    ("3d_tetramer_sizes_bg", "resident"),
+    ("3d_tetramer_sizes_bg", "streamed"),
 ])
 def test_kernel_matches_plain_on_the_card(kind, route):
     """csrc/fused_lm_2d.cu's n-gon pose and csrc/pixel_lm.cu's axis and
