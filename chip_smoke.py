@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gauss-kernels DIR [--save FILE]
+    python3 chip_smoke.py --gather-kernels DIR
     python3 chip_smoke.py --compare-saved FILE_A FILE_B
 
 ``--gauss-kernels`` times the gauss LM kernels of the port found under DIR
 (this checkout or another commit's) at configs 1, 4, 3 (dimers) and 3c;
 ``--save`` keeps their per-lane results, and ``--compare-saved`` gives the
 share of lanes on which two such files agree bit for bit.
+``--gather-kernels`` times the window gather found under DIR at config 4,
+B=2,048 and 16,384 (kernel alone with L2 flushed, per call, host time per
+call).
 
 Drives the port (``clustertracking_tpu_torch``; no JAX) through its main
 paths, the bucketed cluster fit, at the reference's own sizes: 16,384
@@ -35,8 +39,11 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
               against the rest of a solve, and the device's idle share;
 6. refine   — refine_leastsq on the same scene as a 32,768-row DataFrame
               (only where pandas imports);
-7. kernel3d — config 4's first-round inputs: window_gather against
-              gather_stack (bit-equal), pixel_lm resident and forced
+7. kernel3d — config 4's first-round inputs at B=2,048 and 16,384:
+              window_gather against gather_stack (bit-equal), timed kernel
+              alone with L2 flushed, per call and host µs per call, beside
+              the bytes bound; the wrapper's host work against its bare
+              launch; pixel_lm resident and forced
               streamed against pixel_lm_reference and each other, timed;
               then both modes against the plain version on the same scene
               with noise, where cost is compared on every lane;
@@ -49,7 +56,8 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
 10. profile3d — torch.profiler at B=16,384: gather vs solve vs the rest,
               and the device's idle share;
 11. stream2d — the entry scene with 161×161 windows, which only the
-              streamed gathered route takes, against the plain route;
+              streamed gathered route takes, against the plain route,
+              with window_gather held bit-equal to gather_stack;
 12. refine3d — refine_leastsq on config 4's scene as a DataFrame;
 13. profiles — ring, hat, disc, inv_series_2: fused_lm_2d and pixel_lm
               (both modes) against their plain versions, timed beside
@@ -58,8 +66,9 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
 14. kernel_rigid — each rigid instantiation (2D n-gon; 3D axis and
               rotation vector, both modes) against its plain version on
               its cell's first round, noise-free and with noise σ=1;
-15. rigid   — configs 3, 3b, 3c through entry_rigid: launch counts,
-              accuracy, bond lengths, kernel and plain route clusters/s,
+15. rigid   — configs 3, 3b, 3c through entry_rigid: launch counts
+              (3b, 3c: window_gather bit-equal to gather_stack), accuracy,
+              bond lengths, kernel and plain route clusters/s,
               and a torch.profiler breakdown;
 16. refine_rigid — refine_leastsq(constraints=...) per pose kind against
               lm_backend='torch', and a generic constraint dict.
@@ -98,6 +107,8 @@ AGREE_FRAC = 0.999    # converged / npix equal on at least this share
 RMS_FLOOR = 1e-5
 B_3D = 2048
 B_3D_BIG = 16384
+FLUSH_BYTES = 128 << 20   # read between timed gathers: over the 50 MB L2
+GATHER_REPS = 20
 STREAM_WINDOW = (161, 161)
 STREAM_RADIUS = (6.5, 6.5)
 KERNELS = ("fused_lm_2d", "window_gather", "pixel_lm")
@@ -222,6 +233,7 @@ def phase_build():
         # profile, pose), in the order nvcc reports them
         # (D, streamed, profile, pose, slot ceiling; fused_lm_2d: profile,
         # pose, slot ceiling) = registers/warps per SM that they allow
+        # window_gather: 256 threads per block (kThreads in the .cu)
         entries = _ptxas_entries(report)
         wpb = 8 if name == "window_gather" else 1   # warps per block
         regs = " ".join(
@@ -551,34 +563,128 @@ def _first_round_inputs_3d(batch, device):
     return st, args, kw, layout
 
 
-def phase_kernel3d(batch, device, smi):
+def _flush_l2():
+    """Read FLUSH_BYTES on the card (one reduction), so that the next
+    kernel finds none of its data in the 50 MB L2 (and only clean lines:
+    nothing to write back)."""
+    import torch
+
+    buf = getattr(_flush_l2, "buf", None)
+    if buf is None:
+        buf = _flush_l2.buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    buf.sum()
+
+
+def _kernel_alone_ms(fn, reps, cold=True):
+    """``fn``'s own device time per call by torch.profiler (every kernel
+    and copy it runs but the flush's reduction and memset), with L2
+    flushed before each call when ``cold``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _flush_l2()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    _flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(v for k, v in _device_ms(prof).items()
+                 if "reduce_kernel" not in k and "Memset" not in k) / reps
+        if ms > 0:
+            return ms
+    check(False, "three profiles recorded no device time")
+
+
+def _host_us(fn, n=200):
+    """Host time per call in µs: ``n`` calls enqueued with no sync between
+    them, so nothing waits for the device."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / n * 1e6
+
+
+def _gather_cell(frames, fidx, origin, window, reps):
+    """One gather shape: window_gather held bit-equal to gather_stack, and
+    both timed — kernel alone with L2 flushed before each call, per call
+    (CUDA events over back-to-back calls, L2 warm) and host µs per call —
+    beside the bytes bound."""
+    import torch
+
+    from clustertracking_tpu_torch.ops.gather import gather_stack
+    from clustertracking_tpu_torch.ops.window_gather import window_gather
+
+    want = gather_stack(frames, fidx, origin, window)
+    out = dict(bytes=2 * want.nbytes + origin.nbytes + fidx.nbytes)
+
+    def call():
+        return window_gather(frames, fidx, origin, window)
+
+    got = call()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"window_gather differs from gather_stack at B={len(fidx)}")
+    out["kernel"] = dict(kernel=_kernel_alone_ms(call, reps),
+                         call=_cuda_ms(call, 20), host=_host_us(call),
+                         err=float((got - want).abs().max()))
+    del got
+
+    def plain():
+        return gather_stack(frames, fidx, origin, window)
+
+    out["plain"] = dict(kernel=_kernel_alone_ms(plain, max(reps // 4, 2)),
+                        call=_cuda_ms(plain, 5), host=_host_us(plain, 20))
+    return out
+
+
+def _fmt_gather(name, t, bound_ms):
+    return (f"{name} kernel alone {t['kernel']:.4f} ms "
+            f"({bound_ms / t['kernel']:.3f} of the bound), per call "
+            f"{t['call']:.4f} ms, host {t['host']:.1f} µs per call")
+
+
+def phase_kernel3d(batch, big, device, smi):
     import torch
 
     from clustertracking_tpu_torch.entry import WINDOW_3D
-    from clustertracking_tpu_torch.ops.gather import gather_stack
     from clustertracking_tpu_torch.ops.pixel_lm import (
         pixel_lm, pixel_lm_reference)
-    from clustertracking_tpu_torch.ops.window_gather import window_gather
+    from clustertracking_tpu_torch.ops.window_gather import _launch
 
+    gather = {}
+    for B, b in ((B_3D, batch), (B_3D_BIG, big)):
+        st, args, kw, layout = _first_round_inputs_3d(b, device)
+        g = _gather_cell(st.frames, st.frame_idx, args[4], WINDOW_3D,
+                         GATHER_REPS)
+        g["bound"] = _bound(g["bytes"], 0)
+        gather[B] = g
+        bound_ms = g["bound"]["bound_ms"]
+        print(f"[kernel3d] {smi}: window_gather at B={B}, {WINDOW_3D}, "
+              f"bit-equal to gather_stack; L2 flushed (a "
+              f"{FLUSH_BYTES >> 20} MB read) before each kernel-alone "
+              f"call: " + "; ".join(_fmt_gather(v, g[v], bound_ms)
+                                   for v in ("kernel", "plain"))
+              + f"; bound {bound_ms:.4f} ms (bytes)", flush=True)
+        del st
+    # the wrapper's host work at B=2,048 against its bare launch
     st, args, kw, layout = _first_round_inputs_3d(batch, device)
-    origin = args[4]
-
-    def gk():
-        return window_gather(st.frames, st.frame_idx, origin, WINDOW_3D)
-
-    def gp():
-        return gather_stack(st.frames, st.frame_idx, origin, WINDOW_3D)
-
-    pix_k, pix_p = gk(), gp()
-    torch.cuda.synchronize()
-    gather_equal = bool(torch.equal(pix_k, pix_p))
-    gather_err = float((pix_k - pix_p).abs().max())
-    g_ms, gp_ms = _cuda_ms(gk, 20), _cuda_ms(gp, 20)
-    print(f"[kernel3d] {smi}: window_gather vs gather_stack at B={len(pix_k)},"
-          f" {WINDOW_3D}: bit-equal {gather_equal} (max |d| {gather_err:.1e}"
-          f"); kernel {g_ms:.4f} ms, plain {gp_ms:.4f} ms per call",
-          flush=True)
-    check(gather_equal, "window_gather differs from gather_stack")
+    out = torch.empty((B_3D, int(np.prod(WINDOW_3D))), device=device)
+    bare_us = _host_us(lambda: _launch(st.frames, st.frame_idx, args[4],
+                                       WINDOW_3D, out))
+    print(f"[kernel3d] {smi}: window_gather host work at B={B_3D}: "
+          f"{gather[B_3D]['kernel']['host']:.1f} µs per wrapper call, of "
+          f"which the bare launch (ctypes call and kernel launch) "
+          f"{bare_us:.1f} µs", flush=True)
 
     pos_slots = sorted({int(s) for p in layout.pos_param_idx
                         for s in layout.slot_idx[:, p]})
@@ -615,18 +721,24 @@ def phase_kernel3d(batch, device, smi):
               f"noise sigma 1: {_fmt(a)}", flush=True)
         check(a["floor_lanes"] == 0, "a noisy lane fit to float32 resolution")
         out[mode]["agree"]["pos"] = max(out[mode]["agree"]["pos"], a["pos"])
-    # the gather reads each window once and writes it once; gather_stack,
-    # one advanced-index read, is the one PyTorch call that computes it
-    g_bytes = 2 * pix_k.nbytes + origin.nbytes + st.frame_idx.nbytes
     bounds = {m: _lm_bound(out[m]["res"], args, kw) for m in out}
-    print(f"[kernel3d] {smi}: bounds — window_gather "
-          f"{_bound(g_bytes, 0)['bound_ms']:.4f} ms (bytes), pixel_lm "
+    print(f"[kernel3d] {smi}: bounds — pixel_lm "
           + ", ".join(f"{m} {b['bound_ms']:.4f} ms ({b['bound_by']}; time "
                       f"over bound {out[m]['ms'] / b['bound_ms']:.1f}x)"
                       for m, b in bounds.items()), flush=True)
+    # the gather: per call at config 4 and the kernel alone at both sizes;
+    # gather_stack, one advanced-index read, is the PyTorch call that
+    # computes the same
+    g = gather[B_3D]
     return dict(
-        gather=dict(max_abs_err=gather_err, ms=g_ms, plain_ms=gp_ms,
-                    **_bound(g_bytes, 0), library_ms=gp_ms),
+        gather=dict(
+            max_abs_err=max(gather[b]["kernel"]["err"] for b in gather),
+            ms=g["kernel"]["call"], plain_ms=g["plain"]["call"],
+            **g["bound"], library_ms=g["plain"]["call"],
+            kernel_ms={v: {b: gather[b][v]["kernel"] for b in gather}
+                       for v in ("kernel", "plain")},
+            bound_ms_by_batch={b: gather[b]["bound"]["bound_ms"]
+                               for b in gather}),
         **{m: dict(max_abs_err=out[m]["agree"]["pos"], ms=out[m]["ms"],
                    plain_ms=plain_ms, **bounds[m], library_ms=None)
            for m in out},
@@ -706,11 +818,11 @@ def phase_main3d(batch, device, smi):
     return total
 
 
-def phase_rates3d(batch, device, smi):
+def phase_rates3d(batch, big, device, smi):
     import torch
 
     from clustertracking_tpu_torch.entry import (
-        WINDOW_3D, entry_3d, example_batch_3d)
+        WINDOW_3D, entry_3d)
     from clustertracking_tpu_torch.ops.pixel_lm import (
         occupancy, pick_streaming)
 
@@ -721,7 +833,6 @@ def phase_rates3d(batch, device, smi):
     rate_k1, disp_k1 = _rate(solve, args, REPS_KERNEL)
     rate_k2, disp_k2 = _rate(solve, args, REPS_KERNEL)
     rate_p2, disp_p2 = _rate(plain, args, REPS_PLAIN)
-    big = example_batch_3d(B=B_3D_BIG)
     solve_big, args_big = entry_3d(device, batch=big)
     rate_big, disp_big = _rate(solve_big, args_big, REPS_KERNEL // 4)
     occ = occupancy(WINDOW_3D, n_slots=14)   # config 4: V = 14
@@ -738,17 +849,24 @@ def phase_rates3d(batch, device, smi):
           f"streamed, so it runs {mode}: on {sms} SMs {B_3D} clusters fill "
           f"{B_3D / (warps * sms):.2f} waves and {B_3D_BIG} fill "
           f"{B_3D_BIG / (warps * sms):.2f}", flush=True)
-    return big, solve_big, args_big
+    return solve_big, args_big
 
 
 def _device_ms(prof):
-    """Device time by kernel name in a torch.profiler run, in ms, leaving
-    out the record_function ranges (device spans too)."""
+    """Device time by kernel (and copy) name in a torch.profiler run, in
+    ms.  Only the device's own events count: a CPU op such as aten::sum
+    reports its kernels' time as its own too, the record_function ranges
+    are device spans that hold kernels, and the profiler's own buffer
+    requests are not the program's work."""
+    from torch.autograd import DeviceType
+
     out = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0 and not e.key.startswith(("refit_round", "fit_bucket")):
+        if (t > 0 and e.device_type == DeviceType.CUDA
+                and e.key != "Activity Buffer Request"
+                and not e.key.startswith(("refit_round", "fit_bucket"))):
             out[e.key] = out.get(e.key, 0.0) + t / 1e3
     return out
 
@@ -813,6 +931,24 @@ def phase_profile3d(solve, args, smi):
     check(gather > 0 and lm > 0, "the profile saw no gathered-route kernel")
 
 
+def _gather_equal(st, window, positions):
+    """window_gather bit-equal to gather_stack on every lane of a scene's
+    first-round windows (origins around ``positions``, a [B, n, D]
+    tensor); raises if not."""
+    import torch
+
+    from clustertracking_tpu_torch.ops.gather import gather_stack, origins_for
+    from clustertracking_tpu_torch.ops.window_gather import window_gather
+
+    origin = origins_for(positions.contiguous(), window,
+                         tuple(st.frames.shape[1:]))
+    want = gather_stack(st.frames, st.frame_idx, origin, window)
+    got = window_gather(st.frames, st.frame_idx, origin, window)
+    check(torch.equal(got, want),
+          f"window_gather differs from gather_stack in a {window} window")
+    return "bit-equal to gather_stack"
+
+
 def phase_stream2d(device, smi):
     import torch
 
@@ -833,6 +969,7 @@ def phase_stream2d(device, smi):
     plain, _ = _bucket_solver(*common, "torch", "torch")
     route = kernel_route(get_model("gauss"), layout, False, None,
                          STREAM_WINDOW)
+    gathered = _gather_equal(st, STREAM_WINDOW, st.params0[..., 2:4])
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
@@ -853,7 +990,8 @@ def phase_stream2d(device, smi):
     conv_eq = float(np.mean(ck.cpu().numpy() == cp.cpu().numpy()))
     err = np.abs(pk[..., 2:4].cpu().numpy() - batch[5]).max(axis=-1)
     print(f"[stream2d] {smi}: entry scene B={B_3D}, window {STREAM_WINDOW},"
-          f" radius {STREAM_RADIUS}: route {route!r}, launches {n}; "
+          f" radius {STREAM_RADIUS}: route {route!r}, launches {n} "
+          f"(window_gather {gathered}); "
           f"gathered {wall:.3f} s vs plain {wall_p:.3f} s; max |dpos| "
           f"{pos_err:.3e} px, max rms rel "
           f"{float(np.max(np.abs(rk - rp) / rp)):.3e}, converged equal "
@@ -1246,10 +1384,20 @@ def phase_rigid(batches, device, smi):
 
     from clustertracking_tpu_torch.entry import entry_rigid
 
-    launches = {"window_gather": 0}
+    from clustertracking_tpu_torch.constraints import pose_to_positions
+    from clustertracking_tpu_torch.interop import from_reference
+
+    launches = {}
     for config, routes in RIGID_ROUTES.items():
         c, _ = _rigid_layout(config)
         con, batch, D = c["con"], batches[config], c["ndim"]
+        if D == 3:
+            st = from_reference(*batch[:5], device=device)
+            print(f"[rigid] {smi}: config {config} window_gather at "
+                  f"{c['window']}: " + _gather_equal(
+                      st, c["window"], pose_to_positions(st.pose0, con)),
+                  flush=True)
+            del st
         for route in routes:
             streaming = None if route == "fused" else route == "streamed"
             solve, args = entry_rigid(config, device, batch=batch,
@@ -1273,7 +1421,6 @@ def phase_rigid(batches, device, smi):
                   f"{bond:.2e} px, converged {conv_frac:.4f}, mean LM iters "
                   f"{float(iters.float().mean()):.2f}", flush=True)
             launches[(config, route)] = _launched(n, route)
-            launches["window_gather"] += n["window_gather"]
             check(launches[(config, route)] > 0,
                   f"config {config} did not launch its {route} kernel")
             others = sum(v for k, v in n.items() if k not in (
@@ -1424,19 +1571,20 @@ def main():
     _stamp("refine")
     del batch
     batch3d = example_batch_3d(B=B_3D, with_truth=True)
-    k3 = phase_kernel3d(batch3d, device, smi)
+    big = example_batch_3d(B=B_3D_BIG)
+    k3 = phase_kernel3d(batch3d, big, device, smi)
     _stamp("kernel3d")
     n3 = phase_main3d(batch3d, device, smi)
     _stamp("main3d")
-    _, solve_big, args_big = phase_rates3d(batch3d, device, smi)
+    solve_big, args_big = phase_rates3d(batch3d, big, device, smi)
     _stamp("rates3d")
     phase_profile3d(solve_big, args_big, smi)
     _stamp("profile3d")
-    del solve_big, args_big
+    del solve_big, args_big, big
     torch.cuda.empty_cache()
-    n2 = phase_stream2d(device, smi)
+    phase_stream2d(device, smi)
     _stamp("stream2d")
-    r3 = phase_refine3d(batch3d, device, smi)
+    phase_refine3d(batch3d, device, smi)
     _stamp("refine3d")
     del batch3d
     kp, np_ = phase_profiles(device, smi)
@@ -1446,14 +1594,10 @@ def main():
     _stamp("kernel_rigid")
     nr = phase_rigid(rigid, device, smi)
     _stamp("rigid")
-    rr = phase_refine_rigid(rigid, device, smi)
+    phase_refine_rigid(rigid, device, smi)
     _stamp("refine_rigid")
-    # window_gather's launches over every path that drives it; pixel_lm's
-    # two modes keep config 4's own counts (main3d), the shape their
-    # entries are timed at
-    n3["window_gather"] += (n2["window_gather"]
-                            + (r3 or {}).get("window_gather", 0)
-                            + nr["window_gather"] + rr["window_gather"])
+    # window_gather and pixel_lm's two modes keep config 4's own counts
+    # (main3d: three solves), the shape their entries are timed at
     for name in ("window_gather", "resident", "streamed"):
         check(n3[name] > 0, f"no path of the 3D slice launched {name}")
     src = "clustertracking_tpu_torch/csrc/"
@@ -1646,6 +1790,40 @@ def gauss_kernels(root, save=None):
         np.savez(save, **kept)
 
 
+def gather_kernels(root):
+    """The window gather of the port found under ``root`` (this checkout,
+    or another one such as the parent commit's), timed on one card at
+    config 4's first-round inputs, B=2,048 and B=16,384: kernel alone with
+    L2 flushed before each call, per call and host µs per call, held
+    bit-equal to gather_stack, beside gather_stack and the bytes bound.
+    One line per size; run two checkouts in turns to compare them."""
+    sys.path.insert(0, root)
+    import torch
+
+    from clustertracking_tpu_torch.entry import WINDOW_3D, example_batch_3d
+    from clustertracking_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    t0 = time.perf_counter()
+    _build.build_kernels(("window_gather",))
+    build_s = time.perf_counter() - t0
+    for B in (B_3D, B_3D_BIG):
+        st, args, _, _ = _first_round_inputs_3d(example_batch_3d(B=B),
+                                                "cuda")
+        g = _gather_cell(st.frames, st.frame_idx, args[4], WINDOW_3D,
+                         GATHER_REPS)
+        bound_ms = _bound(g["bytes"], 0)["bound_ms"]
+        print(f"[gather_kernels] {root}: B={B}, {WINDOW_3D}: " + "; ".join(
+            _fmt_gather(v, g[v], bound_ms) for v in ("kernel", "plain"))
+            + f"; bound {bound_ms:.4f} ms (bytes)", flush=True)
+        del st, args, g
+        torch.cuda.empty_cache()
+    regs = {e: r for e, r, _ in _ptxas_entries(
+        _build.build_log("window_gather")[1])}
+    print(f"[gather_kernels] {root}: build {build_s:.1f} s; registers "
+          f"{regs}", flush=True)
+
+
 def compare_saved(file_a, file_b):
     """Share of lanes on which two ``--save`` files agree bit for bit, per
     kernel: x, cost and n_iter together, and npix."""
@@ -1669,6 +1847,8 @@ if __name__ == "__main__":
         rest = sys.argv[2:]
         save = rest[rest.index("--save") + 1] if "--save" in rest else None
         gauss_kernels(rest[0] if rest and rest[0] != "--save" else ".", save)
+    elif sys.argv[1:2] == ["--gather-kernels"]:
+        gather_kernels(sys.argv[2] if len(sys.argv) > 2 else ".")
     elif sys.argv[1:2] == ["--compare-saved"]:
         compare_saved(sys.argv[2], sys.argv[3])
     else:

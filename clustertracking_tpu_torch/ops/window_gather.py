@@ -55,7 +55,7 @@ def check_tensor(who, name, t, dtype, shape, device):
         raise TypeError(f"{who}: {name} must be a tensor")
     if t.dtype != dtype:
         raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(
             f"{who}: {name} has shape {tuple(t.shape)}, "
             f"expected {tuple(shape)}"
@@ -71,7 +71,7 @@ def window_gather(frames, frame_idx, origin, window_shape):
 
     CUDA tensors launch ``csrc/window_gather.cu``; CPU tensors get
     ``gather_stack``."""
-    window_shape = tuple(int(w) for w in window_shape)
+    window_shape = tuple(map(int, window_shape))
     device = frames.device
     if device.type == "cpu":
         return gather_stack(frames, frame_idx, origin, window_shape)
@@ -94,22 +94,36 @@ def window_gather(frames, frame_idx, origin, window_shape):
                  device)
     check_tensor("window_gather", "origin", origin, torch.int32, (B, D),
                  device)
-    T = frames.shape[0]
-    Z, H, W = (1,) + S if D == 2 else S
-    wz, wy, wx = (1,) + window_shape if D == 2 else window_shape
-    out = torch.empty((B, wz * wy * wx), dtype=torch.float32, device=device)
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.window_gather_launch(
-            frames.data_ptr(), T, Z, H, W, frame_idx.data_ptr(),
-            origin.data_ptr(), B, D, wz, wy, wx, out.data_ptr(), stream,
-        )
+    npix = 1
+    for w in window_shape:
+        npix *= w
+    out = torch.empty((B, npix), dtype=torch.float32, device=device)
+    if B == 0:
+        return out
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index != current:
+        with torch.cuda.device(index):
+            rc = _launch(frames, frame_idx, origin, window_shape, out)
+    else:
+        rc = _launch(frames, frame_idx, origin, window_shape, out)
     if rc != 0:
         raise RuntimeError(f"window_gather: kernel launch failed, "
                            f"cudaError {rc}")
     window_gather.launches += 1
     return out
+
+
+def _launch(frames, frame_idx, origin, window_shape, out):
+    """The kernel's launch on the current device's current stream, on
+    tensors ``window_gather`` has checked; returns the launcher's code."""
+    D = len(window_shape)
+    Z, H, W = (1,) + tuple(frames.shape[1:]) if D == 2 else frames.shape[1:]
+    wz, wy, wx = (1,) + window_shape if D == 2 else window_shape
+    return _library().window_gather_launch(
+        frames.data_ptr(), frames.shape[0], Z, H, W, frame_idx.data_ptr(),
+        origin.data_ptr(), frame_idx.shape[0], D, wz, wy, wx,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
 
 
 window_gather.launches = 0

@@ -259,3 +259,63 @@ def test_global_distance_raises_not_implemented():
         refine_leastsq(f, img, diameter=9, separation=5.5,
                        constraints=pc.dimer_global(ndim=2),
                        param_val={"size": 2.5})
+
+
+def _broad_dimer_frame(size, start):
+    """A 2D dimer of ``size`` (a Gaussian wider than the fit window when
+    large) with noise σ=0.5 and starts 0.4 px off, its size column at
+    ``start``."""
+    img, f, true = _frame2d(2, size, 5.0, 0.8, 2)
+    img += np.random.default_rng(8).normal(0, 0.5, img.shape)
+    f["size"] = start
+    return img, f, true
+
+
+def test_rigid_var_sizes_bounded_at_their_own_slots():
+    """A rigid fit with sizes 'var' (``dimer(5.0, 2)`` in 2D), through
+    both packages on the same inputs.
+
+    The port bounds each fitted size to [0.05, largest window extent] at
+    its own place in the rigid vector [pose (Qt = 3), slots (V = 8)],
+    Qt + s (``refine._slot_bounds``).  The reference bounds the unshifted
+    slot index s instead (clustertracking_tpu/refine.py:415-421 against
+    the pose shift of :382-402): for this layout the size slots 6 and 7
+    land on vector entries 6 and 7, which are layout slots 3 and 4, the
+    inert position slots of feature 1's y and feature 0's x, and the
+    fitted sizes (entries 9 and 10) are left unbounded.  On a well-posed
+    scene (size 2.5, started at 2.0) the two agree.  On a dimer broader
+    than its 18×18 window (size 30, started at 12) the port's sizes stop
+    at the bound, 18, while the reference's run past it."""
+    from clustertracking_tpu_torch.models import build_layout, get_model
+    from clustertracking_tpu_torch.refine import _slot_bounds, _window_shape
+
+    jc = _ref()
+    layout = build_layout(get_model("gauss"), 2, True, 2, {"size": "var"})
+    window = _window_shape(2, 2, (4.5, 4.5), (5.5, 5.5), (64, 64))
+    assert window == (18, 18)
+    lo, hi = _slot_bounds(layout, window, (64, 64),
+                          constraint=pc.dimer(5.0, 2))
+    Qt = 3
+    size_slots = [int(s) for s in
+                  layout.slot_idx[:, layout.param_names.index("size")]]
+    assert size_slots == [6, 7]
+    for s in size_slots:
+        assert (lo[Qt + s], hi[Qt + s]) == (np.float32(0.05), 18.0)
+        # the entries the reference bounds: inert position slots, free here
+        assert (lo[s], hi[s]) == (-np.inf, np.inf)
+
+    kw = dict(diameter=9, separation=5.5, param_mode={"size": "var"})
+    img, f, true = _broad_dimer_frame(2.5, 2.0)
+    out, out_j = _both(f, img, jc.dimer(5.0, ndim=2), **kw)
+    cols = ["y", "x", "size"]
+    np.testing.assert_allclose(out[cols].to_numpy(), out_j[cols].to_numpy(),
+                               atol=FIT_ATOL, rtol=0)
+    assert np.abs(out["size"].to_numpy() - 2.5).max() < 0.01
+
+    img, f, _ = _broad_dimer_frame(30.0, 12.0)
+    out, out_j = _both(f, img, jc.dimer(5.0, ndim=2), **kw)
+    np.testing.assert_allclose(out["size"].to_numpy(), 18.0, rtol=0,
+                               atol=1e-5)
+    assert (out_j["size"].to_numpy() > 18.0).all()
+    pos = out[["y", "x"]].to_numpy()
+    np.testing.assert_allclose(_edges(pos), 5.0, atol=1e-4)
