@@ -34,7 +34,8 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
 4. main     — the entry() bucket solver through the full refit-on-shift
               loop; the kernel's launch count, rms and position accuracy;
 5. rates    — bucket-solver clusters/s with the kernel and with the plain
-              version (bench.py's method), and the serial scipy rate; then
+              version (bench.py's method; the plain one over PLAIN_BLOCKS
+              blocks), and the serial scipy rate; then
               (profile) torch.profiler over the same solver: the kernel
               against the rest of a solve, and the device's idle share;
 6. refine   — refine_leastsq on the same scene as a 32,768-row DataFrame
@@ -51,7 +52,8 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
               pixel_lm's mode picked by occupancy and with each mode
               forced; per-mode launch counts, rms and position accuracy;
 9. rates3d  — config 4 clusters/s, gathered route and plain route at
-              B=2,048, gathered route at B=16,384 with the kernels'
+              B=2,048 (the plain route over PLAIN_BLOCKS blocks, as in
+              rates), gathered route at B=16,384 with the kernels'
               occupancy;
 10. profile3d — torch.profiler at B=16,384: gather vs solve vs the rest,
               and the device's idle share;
@@ -71,9 +73,34 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
               bond lengths, kernel and plain route clusters/s,
               and a torch.profiler breakdown;
 16. refine_rigid — refine_leastsq(constraints=...) per pose kind against
-              lm_backend='torch', and a generic constraint dict.
+              lm_backend='torch', and a generic constraint dict;
+17. locate  — config 2's video (100 frames of 512×512, 50 Brownian dimers
+              each, benchmarks/suite.py::_video): _locate_frames raw,
+              bandpassed and bandpassed with a 64-px tile threshold, on
+              the card (all 100 frames) and on the host (the first 64, one
+              stack chunk: every code path), candidates identical on the
+              raw path, at least 99.9% on the filtered ones; ms per frame,
+              recall against the truth, local_maxima_topk per frame;
+18. train   — train_leastsq on 8 frames of 512×512 drawn with
+              tests/test_train.py's inverse-series PSF (289 clusters a
+              frame, singles and dimers): the learned coefficients within
+              0.05 of the truth, seconds per round, lm_solve_global per
+              call, the device's idle share, window_gather bit-equal to
+              gather_stack on the first global bucket's windows and
+              timed; then refine_leastsq with the
+              learned coefficients on every feature, through fused_lm_2d's
+              inv_series_2 profile, held to lm_backend='torch' and to the
+              truth, and fused_lm_2d vs plain on that refit's first launch;
+19. global  — locate's raw candidates → find_clusters → refine_leastsq
+              (constraints=dimer_global(ndim=2)): one bond length for the
+              whole video, within 0.02 px of the drawn 5 px, rigid to 1e-3
+              px on every accepted dimer, window_gather bit-equal to
+              gather_stack on the first global bucket's windows and timed,
+              and the n-gon fused_lm_2d vs plain on the fixed-distance
+              refit's first launch.
 
-A [time] line follows each phase.  Then one JSON line describing each
+A [time] line follows each phase (17-19 also print their own seconds).
+Then one JSON line describing each
 kernel (with its bound: the larger of its FP32 operations over the card's
 peak and its bytes over the memory rate), and last the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -91,6 +118,7 @@ B_FULL = 16384
 FRAME = 256
 PITCH = 16
 BLOCKS = 5            # timed blocks per rate (median reported)
+PLAIN_BLOCKS = 3      # the same, for the plain routes' rates
 REPS_KERNEL = 16      # solves per timed block, kernel route
 REPS_PLAIN = 2        # solves per timed block, plain route
 # kernel vs plain on the card: FMA contraction and summation order differ,
@@ -132,6 +160,25 @@ PROFILE_CASES = {
 }
 B_PROFILE_2D = 2048
 B_PROFILE_3D = 1024
+# [locate] and [global]: config 2's video (benchmarks/suite.py::_video)
+LOC_FRAMES = 100
+LOC_SHAPE = (512, 512)
+LOC_DIMERS = 50
+LOC_BOND = 5.0
+LOC_SIZE = 1.6
+LOC_NOISE = 2.0
+LOC_DIAMETER = 9
+LOC_SEPARATION = 6
+LOC_AGREE = 0.999     # share of filtered-path candidates identical
+LOC_HOST_FRAMES = 64  # frames located on the host too: one stack chunk
+SIZE_RTOL = 1e-4      # locate sizes, card vs host
+# [train]: tests/test_train.py's inverse-series PSF at full frame size
+TRAIN_FRAMES = 8
+TRAIN_COEFFS = (0.8, 0.25)
+TRAIN_TOL = 0.05      # |learned - truth|, test_train.py's tolerance
+TRAIN_POS_TOL = 0.03  # px, test_train_feeds_back_into_refine's
+GLOBAL_DIST_TOL = 0.02
+GLOBAL_PTP_TOL = 1e-3
 # bound_ms: the least time an NVIDIA H100 SXM could take (NVIDIA's data
 # sheet, at its 700 W limit): float32 outside the tensor cores, and the
 # device memory rate.
@@ -415,10 +462,10 @@ def phase_rates(batch, device, smi):
         get_model("gauss"), 2, True, 2, (), WINDOW, RADIUS, (), None, 1e5,
         10, 1.0, 60, 1.49e-8, 1.49e-8, False, "torch",
     )
-    rate_p1, disp_p1 = _rate(plain, args, REPS_PLAIN)
+    rate_p1, disp_p1 = _rate(plain, args, REPS_PLAIN, PLAIN_BLOCKS)
     rate_k1, disp_k1 = _rate(solve, args, REPS_KERNEL)
     rate_k2, disp_k2 = _rate(solve, args, REPS_KERNEL)
-    rate_p2, disp_p2 = _rate(plain, args, REPS_PLAIN)
+    rate_p2, disp_p2 = _rate(plain, args, REPS_PLAIN, PLAIN_BLOCKS)
     frames, fidx, params0 = batch[0], batch[1], batch[2]
     n_base = 40
     t0 = time.perf_counter()
@@ -829,10 +876,10 @@ def phase_rates3d(batch, big, device, smi):
     solve, args = entry_3d(device, batch=batch)
     plain, _ = entry_3d(device, batch=batch, lm_backend="torch",
                         gather_backend="torch")
-    rate_p1, disp_p1 = _rate(plain, args, REPS_PLAIN)
+    rate_p1, disp_p1 = _rate(plain, args, REPS_PLAIN, PLAIN_BLOCKS)
     rate_k1, disp_k1 = _rate(solve, args, REPS_KERNEL)
     rate_k2, disp_k2 = _rate(solve, args, REPS_KERNEL)
-    rate_p2, disp_p2 = _rate(plain, args, REPS_PLAIN)
+    rate_p2, disp_p2 = _rate(plain, args, REPS_PLAIN, PLAIN_BLOCKS)
     solve_big, args_big = entry_3d(device, batch=big)
     rate_big, disp_big = _rate(solve_big, args_big, REPS_KERNEL // 4)
     occ = occupancy(WINDOW_3D, n_slots=14)   # config 4: V = 14
@@ -1538,6 +1585,488 @@ def phase_refine_rigid(batches, device, smi):
     return total
 
 
+def _video(n_frames=LOC_FRAMES, shape=LOC_SHAPE, n_dimers=LOC_DIMERS,
+           bond=LOC_BOND, seed=0):
+    """A numpy copy of benchmarks/suite.py::_video (config 2's scene):
+    Brownian dimers (bond ``bond`` px) drawn by the port's
+    CoordinateReader at size 1.6 with noise σ=2.  Returns (frames
+    [T, *shape] f32, truth DataFrame)."""
+    import pandas as pd
+
+    from clustertracking_tpu_torch.artificial import (
+        CoordinateReader, gen_random_locations)
+
+    rng = np.random.default_rng(seed)
+    centers = gen_random_locations(tuple(s - 24 for s in shape), n_dimers,
+                                   margin=0, rng=rng) + 12.0
+    angles = rng.uniform(0, np.pi, n_dimers)
+    rows = []
+    for t in range(n_frames):
+        centers = centers + rng.normal(0, 0.5, centers.shape)
+        centers = np.clip(centers, 10, np.asarray(shape) - 10.0)
+        angles = angles + rng.normal(0, 0.1, n_dimers)
+        offs = (bond / 2.0) * np.stack([np.sin(angles), np.cos(angles)],
+                                       axis=-1)
+        for k in range(n_dimers):
+            for sgn in (+1, -1):
+                p = centers[k] + sgn * offs[k]
+                rows.append({"frame": t, "y": p[0], "x": p[1],
+                             "signal": 150.0})
+    f = pd.DataFrame(rows)
+    reader = CoordinateReader(f, shape, size=LOC_SIZE,
+                              noise_level=LOC_NOISE)
+    frames = np.stack([reader[t] for t in range(n_frames)])
+    return frames.astype(np.float32), f
+
+
+class _Stack:
+    """A frame stack as a reader."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __getitem__(self, t):
+        return self.frames[t]
+
+    def __len__(self):
+        return len(self.frames)
+
+
+def _recall(cands, truth, r=1.0):
+    """Share of true features with a candidate within ``r`` px."""
+    from scipy.spatial import cKDTree
+
+    hit = 0
+    for t, tr in truth.groupby("frame"):
+        c = cands[cands["frame"] == t][["y", "x"]].to_numpy()
+        if len(c):
+            d, _ = cKDTree(c).query(tr[["y", "x"]].to_numpy(), k=1)
+            hit += int((d <= r).sum())
+    return hit / len(truth)
+
+
+def phase_locate(device, smi):
+    """_locate_frames over config 2's video on the card, and over its first
+    LOC_HOST_FRAMES frames on the host: the raw path candidate for
+    candidate, the filtered paths on at least LOC_AGREE of their
+    candidates; ms per frame and recall.  Returns (frames, truth, the
+    card's raw candidates)."""
+    import torch
+
+    from clustertracking_tpu_torch.ops.locate import (
+        _candidate_mask, local_maxima_topk)
+    from clustertracking_tpu_torch.pipeline import _locate_frames
+
+    t_phase = time.perf_counter()
+    frames, truth = _video()
+    reader = _Stack(frames)
+    args = (reader, range(LOC_FRAMES), (LOC_DIAMETER,) * 2,
+            (LOC_SEPARATION,) * 2, None, 64.0, 4096, "frame")
+    modes = {"raw": {}, "bandpass": {"preprocess": "bandpass"},
+             "tiled": {"preprocess": "bandpass", "threshold_tile": 64}}
+    _locate_frames(_Stack(frames[:2]), range(2), *args[2:], device=device)
+    raw = None
+    for name, kw in modes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = _locate_frames(*args, device=device, **kw)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3 / LOC_FRAMES
+        if name == "raw":
+            raw = on_card
+        t0 = time.perf_counter()
+        on_host = _locate_frames(_Stack(frames[:LOC_HOST_FRAMES]),
+                                 range(LOC_HOST_FRAMES), *args[2:],
+                                 device="cpu", **kw)
+        host_ms = (time.perf_counter() - t0) * 1e3 / LOC_HOST_FRAMES
+        rec = _recall(on_card, truth)
+        on_card = on_card[on_card["frame"] < LOC_HOST_FRAMES]
+        key = ["frame", "y", "x"]
+        a = {tuple(r) for r in on_card[key].to_numpy()}
+        b = {tuple(r) for r in on_host[key].to_numpy()}
+        differ = len(a ^ b)
+        same_order = (len(on_card) == len(on_host) and np.array_equal(
+            on_card[key].to_numpy(), on_host[key].to_numpy()))
+        size_rel = (float(np.max(np.abs(on_card["size"].to_numpy()
+                                        - on_host["size"].to_numpy())
+                                 / on_host["size"].to_numpy()))
+                    if same_order and len(on_host) else float("nan"))
+        print(f"[locate] {smi}: {name}, {LOC_FRAMES} frames of "
+              f"{LOC_SHAPE[0]}x{LOC_SHAPE[1]}: card {card_ms:.3f} ms per "
+              f"frame, host {host_ms:.3f} ms per frame (first "
+              f"{LOC_HOST_FRAMES} frames); on those, {len(on_card)} "
+              f"candidates on the card, {len(on_host)} on the host, "
+              f"{differ} differ, same order {same_order}, max size rel "
+              f"{size_rel:.2e}; recall within 1 px {rec:.4f} of "
+              f"{len(truth)}", flush=True)
+        if name == "raw":
+            raw_ms = card_ms
+            check(same_order, "raw locate: card and host candidates differ")
+            check(size_rel <= SIZE_RTOL, f"raw locate sizes differ by "
+                  f"{size_rel}")
+        else:
+            check(differ <= (1.0 - LOC_AGREE) * len(on_host),
+                  f"{name} locate: {differ} of {len(on_host)} candidates "
+                  "differ between card and host")
+        check(rec > 0.5, f"{name} locate recall {rec}")
+    # where the card's raw locate spends its time: the device's share
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _locate_frames(*args, device=device)
+        torch.cuda.synchronize()
+    dev = sum(_device_ms(prof).values())
+    print(f"[locate] {smi}: raw, device busy {dev / LOC_FRAMES:.3f} ms per "
+          f"frame: idle share {1.0 - dev / (raw_ms * LOC_FRAMES):.3f} of the "
+          f"unprofiled {raw_ms:.3f} ms per frame", flush=True)
+    # the exact brightest-first path, per frame, on the raw video
+    st = torch.as_tensor(frames[:64], device=device)
+    T = len(st)
+    thr = torch.full((T,), 40.0, device=device)
+    sep = (LOC_SEPARATION,) * 2
+    ms = _cuda_ms(lambda: local_maxima_topk(st, sep, 4096, thr), 3) / T
+    mask_ms = _cuda_ms(lambda: _candidate_mask(st, sep, thr), 3) / T
+    print(f"[locate] {smi}: local_maxima_topk {ms:.4f} ms per 512x512 "
+          f"frame (of which the candidate mask {mask_ms:.4f} ms), {T} frames "
+          f"a call; TF32 flags: matmul {torch.backends.cuda.matmul.allow_tf32}"
+          f", cudnn {torch.backends.cudnn.allow_tf32} (the filters are "
+          "shifted sums, no cuDNN)", flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls would run in TF32")
+    print(f"[locate] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return frames, truth, raw
+
+
+def _train_scene(n_frames=TRAIN_FRAMES, shape=(512, 512), noise=0.0,
+                 seed=3):
+    """tests/test_train.py's _scene(mixed=True) at full frame size: on a
+    grid of pitch 28 (range(25, 490, 28) per axis) jittered by ±3 px, a
+    dimer (separation 5) wherever the feature count is a multiple of 3,
+    else a single, drawn with the PSF 1/(1 + a1 r² + a2 r⁴), size 2.0,
+    signal 180.  Returns (frames [T, *shape] f32, truth DataFrame)."""
+    import pandas as pd
+
+    from clustertracking_tpu_torch import artificial
+
+    a1, a2 = TRAIN_COEFFS
+
+    def psf(r2):
+        return 1.0 / (1.0 + a1 * r2 + a2 * r2 * r2)
+
+    frames = np.zeros((n_frames,) + shape, np.float32)
+    rows = []
+    for t in range(n_frames):
+        rng = np.random.default_rng(seed + t)
+        img = np.zeros(shape)
+        grid = [(y, x) for y in range(25, 490, 28)
+                for x in range(25, 490, 28)]
+        rng.shuffle(grid)
+        k = 0
+        for c in grid:
+            center = np.asarray(c, float) + rng.uniform(-3, 3, 2)
+            if k % 3 == 0:
+                pos = artificial.draw_cluster(
+                    img, center, size=2.0, separation=5.0, n=2,
+                    signal=180.0, angle=rng.uniform(0, np.pi),
+                    feat_func=psf, cutoff_sigmas=8.0)
+            else:
+                pos = np.atleast_2d(center + 0.0)
+                artificial.draw_feature(img, pos[0], 2.0, 180.0, psf,
+                                        cutoff_sigmas=8.0)
+            for p in pos:
+                rows.append({"frame": t, "y": p[0], "x": p[1],
+                             "signal": 180.0, "size": 2.0})
+                k += 1
+        if noise:
+            img = img + rng.normal(0, noise, img.shape)
+        frames[t] = img
+    return frames, pd.DataFrame(rows)
+
+
+class _FirstLaunch:
+    """Wraps ``refine.fused_lm_2d`` while the main path runs: counts its
+    launches by kind (rigid or not, from the wrapper's own counter) and
+    keeps the arguments of the first launch of the kind asked for, to be
+    replayed against the plain version afterwards."""
+
+    def __init__(self, rigid):
+        self.rigid = rigid
+        self.args = self.kw = None
+        self.launches = {True: 0, False: 0}
+
+    def __enter__(self):
+        from clustertracking_tpu_torch import refine
+        from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
+
+        self.orig = refine.fused_lm_2d
+
+        def wrapped(*args, **kw):
+            before = fused_lm_2d.launches
+            res = self.orig(*args, **kw)
+            rigid = kw.get("constraint") is not None
+            self.launches[rigid] += fused_lm_2d.launches - before
+            if rigid == self.rigid and self.args is None:
+                self.args, self.kw = args, kw
+            return res
+
+        refine.fused_lm_2d = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from clustertracking_tpu_torch import refine
+
+        refine.fused_lm_2d = self.orig
+
+
+def _window_gather_module():
+    # the package's ops namespace exports the function under the module's
+    # name, so the module itself comes from importlib
+    import importlib
+
+    return importlib.import_module(
+        "clustertracking_tpu_torch.ops.window_gather")
+
+
+class _FirstGather:
+    """Keeps the arguments of the first window_gather launch while a main
+    path runs, to be held against gather_stack afterwards.  It wraps the
+    wrapper's ``_launch``, which every launch goes through, so solvers
+    built before it took effect are seen too."""
+
+    def __enter__(self):
+        wg = _window_gather_module()
+        self.args = None
+        self.orig = wg._launch
+
+        def launch(frames, frame_idx, origin, window_shape, out):
+            if self.args is None:
+                self.args = (frames, frame_idx.clone(), origin.clone(),
+                             tuple(window_shape))
+            return self.orig(frames, frame_idx, origin, window_shape, out)
+
+        wg._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        _window_gather_module()._launch = self.orig
+
+
+def _gather_replay(first, what, smi):
+    """window_gather bit-equal to gather_stack on a main path's first
+    gather (``_FirstGather``), both timed as in [kernel3d].  Returns the
+    kernels-line entry without its launches."""
+    check(first.args is not None, f"{what}: no window_gather launch to "
+          "replay")
+    frames, fidx, origin, window = first.args
+    g = _gather_cell(frames, fidx, origin, window, GATHER_REPS)
+    bound = _bound(g["bytes"], 0)
+    print(f"[{what}] {smi}: window_gather on the first global bucket's "
+          f"windows (B={len(fidx)}, window {window}), bit-equal to "
+          f"gather_stack; L2 flushed before each kernel-alone call: "
+          + "; ".join(_fmt_gather(name, g[v], bound["bound_ms"])
+                      for v, name in (("kernel", "window_gather"),
+                                      ("plain", "gather_stack")))
+          + f"; bound {bound['bound_ms']:.5f} ms (bytes)", flush=True)
+    return dict(max_abs_err=g["kernel"]["err"], ms=g["kernel"]["call"],
+                plain_ms=g["plain"]["call"], **bound,
+                library_ms=g["plain"]["call"])
+
+
+def _replay(first, what, smi):
+    """fused_lm_2d vs its plain version on a main path's first launch
+    (``_FirstLaunch``): agreement, ms, bound.  Returns the kernels-line
+    entry without its launches."""
+    import torch
+
+    from clustertracking_tpu_torch.ops.rigid import rigid_kernel_slots
+
+    check(first.args is not None, f"{what}: no fused_lm_2d launch to replay")
+    args, kw = first.args, first.kw
+    layout, con = kw["layout"], kw.get("constraint")
+    if con is None:
+        pos = sorted({int(s) for p in layout.pos_param_idx
+                      for s in layout.slot_idx[:, p]})
+    else:
+        pos = _rigid_positions(layout, con)
+        check(rigid_kernel_slots(layout, con)[0] > 0, "not a rigid bucket")
+    call, plain = _launcher("fused"), _plain("fused")
+    res_p, plain_ms = _timed(lambda: plain(args, kw))
+    res_k = call(args, kw)
+    torch.cuda.synchronize()
+    a = _agreement(res_k, res_p, pos)
+    ms = _cuda_ms(lambda: call(args, kw), 5)
+    bound = _lm_bound(res_k, args, kw)
+    print(f"[{what}] {smi}: fused_lm_2d vs plain on the first launch "
+          f"(B={len(res_k.cost)}, window {kw['window_shape']}, profile "
+          f"{kw['model'].name}{', ' + con.name if con else ''}): {_fmt(a)}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; time over "
+          f"bound {ms / bound['bound_ms']:.1f}x)", flush=True)
+    return dict(max_abs_err=a["pos"], ms=ms, plain_ms=plain_ms, **bound,
+                library_ms=None)
+
+
+def phase_train(device, smi):
+    """train_leastsq at full frame size, then refine_leastsq with the
+    learned coefficients through the inv_series_2 kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from clustertracking_tpu_torch import (
+        diagnostics, refine, refine_leastsq, train_leastsq)
+    from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
+
+    t_phase = time.perf_counter()
+    frames, truth = _train_scene()
+    kw = dict(diameter=11, separation=6, fit_function="inv_series_2",
+              param_mode={"size": "const"}, device=device)
+    # first, the same scene with noise σ=1 (not gated): it also takes the
+    # process's first-use costs, which the timed call below should not
+    noisy, _ = _train_scene(noise=1.0)
+    t0 = time.perf_counter()
+    learned_n = train_leastsq(truth, noisy, **kw)
+    print(f"[train] {smi}: the scene with noise σ=1 (not gated; the first "
+          f"call in the process): learned {learned_n} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    calls = []
+    orig = refine.lm_solve_global
+
+    def timed(*args, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(*args, **k)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0,
+                      int(res.n_iter.max()), tuple(args[2].shape)))
+        return res
+
+    refine.lm_solve_global = timed
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _FirstGather() as gathered, diagnostics.collect() as stats:
+            learned = train_leastsq(truth, frames, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_train = _counts()
+    finally:
+        refine.lm_solve_global = orig
+    tags = sorted({b.backend for b in stats.batches})
+    per_round = len({b.cluster_size for b in stats.batches})
+    rounds = len(stats.batches) // max(per_round, 1)
+    err = [abs(learned[f"coeff_{k + 1}"] - c)
+           for k, c in enumerate(TRAIN_COEFFS)]
+    ms_call = [1e3 * c[0] for c in calls]
+    print(f"[train] {smi}: train_leastsq on {TRAIN_FRAMES} frames of 512x512"
+          f" ({len(truth)} features; the first 512 clusters sampled): "
+          f"learned {learned}, |error| {err}; {wall:.2f} s, {rounds} rounds "
+          f"({wall / max(rounds, 1):.2f} s per round), {tags}; "
+          f"lm_solve_global {len(calls)} calls, ms per call "
+          f"{[round(m, 1) for m in ms_call]}, max lane n_iter "
+          f"{[c[1] for c in calls]}, lanes x slots {[c[2] for c in calls]}; "
+          f"launches {n_train}", flush=True)
+    check(max(err) < TRAIN_TOL, f"learned coefficients off by {err}")
+    kind = torch.device(device).type
+    check(tags == [f"{kind}-torch-global"], f"train dispatches took {tags}")
+    check(n_train["window_gather"] > 0, "training launched no window_gather")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_leastsq(truth, frames, **kw)
+        torch.cuda.synchronize()
+    dev = sum(_device_ms(prof).values())
+    print(f"[train] {smi}: device busy {dev:.1f} ms of the unprofiled "
+          f"{wall * 1e3:.1f} ms: idle share {1.0 - dev / (wall * 1e3):.3f}",
+          flush=True)
+
+    # the learned coefficients, held fixed, in every feature's refit
+    f0 = truth.copy()
+    f0["y"] += 0.3
+    f0["x"] -= 0.2
+    rkw = dict(diameter=11, separation=6, fit_function="inv_series_2",
+               param_mode={"size": "const", "coeff_1": "const",
+                           "coeff_2": "const"},
+               param_val=learned, device=device)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _FirstLaunch(rigid=False) as first, diagnostics.collect() as stats:
+        out = refine_leastsq(f0, frames, **rkw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _counts()
+    out_p = refine_leastsq(f0, frames, lm_backend="torch", **rkw)
+    pos = out[["y", "x"]].to_numpy()
+    err = float(np.max(np.hypot(*(pos - truth[["y", "x"]].to_numpy()).T)))
+    dpos = float(np.abs(pos - out_p[["y", "x"]].to_numpy()).max())
+    tags = sorted({b.backend for b in stats.batches})
+    print(f"[train] {smi}: refine_leastsq(param_val=learned) on {len(f0)} "
+          f"rows: {wall:.2f} s, {tags}, launches {n}, max |pos - truth| "
+          f"{err:.4f} px, max |dpos| vs lm_backend='torch' {dpos:.2e} px, "
+          f"accepted {out['cost'].notna().mean():.4f}", flush=True)
+    check(n["fused_lm_2d"] > 0, "the refit launched no fused_lm_2d")
+    check(tags == [f"{kind}-fused"], f"the refit took {tags}")
+    check(err < TRAIN_POS_TOL, f"refit position error {err} px")
+    check(dpos <= POS_ATOL, f"kernel and plain routes differ by {dpos} px")
+    entry = _replay(first, "train", smi)
+    gather = _gather_replay(gathered, "train", smi)
+    print(f"[train] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return (dict(launches=n["fused_lm_2d"], **entry),
+            dict(launches=n_train["window_gather"] + n["window_gather"],
+                 **gather))
+
+
+def phase_global(frames, truth, raw, device, smi):
+    """dimer_global over locate's raw candidates: one bond length for the
+    whole video."""
+    import torch
+
+    from clustertracking_tpu_torch import (
+        diagnostics, dimer_global, find_clusters, refine_leastsq)
+
+    t_phase = time.perf_counter()
+    f = find_clusters(raw.copy(), LOC_SEPARATION)
+    sizes = f["cluster_size"].value_counts().sort_index().to_dict()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _FirstLaunch(rigid=True) as first, _FirstGather() as gathered, \
+            diagnostics.collect() as stats:
+        out = refine_leastsq(f, frames, diameter=LOC_DIAMETER,
+                             separation=LOC_SEPARATION,
+                             constraints=dimer_global(ndim=2),
+                             param_val={"size": LOC_SIZE}, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _counts()
+    tags = sorted({b.backend for b in stats.batches})
+    acc = out[(out["cluster_size"] == 2) & out["cost"].notna()]
+    pos = acc.sort_values("cluster", kind="stable")[["y", "x"]].to_numpy(
+    ).reshape(-1, 2, 2)
+    bonds = np.linalg.norm(pos[:, 0] - pos[:, 1], axis=-1)
+    d = out.attrs.get("global_dist", float("nan"))
+    print(f"[global] {smi}: dimer_global over {LOC_FRAMES} frames "
+          f"({len(f)} candidates, cluster sizes {sizes}): {wall:.2f} s "
+          f"(per-dispatch fits and the whole-video refit loop), {tags}, "
+          f"launches {n} (n-gon {first.launches[True]}, free "
+          f"{first.launches[False]}); global_dist {d:.5f} px, "
+          f"{len(bonds)} accepted dimers, bond span {np.ptp(bonds):.2e} px, "
+          f"accepted {out['cost'].notna().mean():.4f}", flush=True)
+    check(first.launches[True] > 0, "no n-gon fused_lm_2d launch")
+    check(np.ptp(bonds) < GLOBAL_PTP_TOL, f"bonds span {np.ptp(bonds)} px")
+    check(abs(d - LOC_BOND) < GLOBAL_DIST_TOL, f"global_dist {d} px")
+    check(n["window_gather"] > 0, "dimer_global launched no window_gather")
+    entry = _replay(first, "global", smi)
+    gather = _gather_replay(gathered, "global", smi)
+    print(f"[global] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return (dict(launches=first.launches[True], **entry),
+            dict(launches=n["window_gather"], **gather))
+
+
 _T0 = time.perf_counter()
 
 
@@ -1596,8 +2125,16 @@ def main():
     _stamp("rigid")
     phase_refine_rigid(rigid, device, smi)
     _stamp("refine_rigid")
+    del rigid
+    frames, truth, raw = phase_locate(device, smi)
+    _stamp("locate")
+    kt, gt = phase_train(device, smi)
+    _stamp("train")
+    kg, gg = phase_global(frames, truth, raw, device, smi)
+    _stamp("global")
     # window_gather and pixel_lm's two modes keep config 4's own counts
-    # (main3d: three solves), the shape their entries are timed at
+    # (main3d: three solves), the shape their entries are timed at; the
+    # calibration path's gathers have entries of their own below
     for name in ("window_gather", "resident", "streamed"):
         check(n3[name] > 0, f"no path of the 3D slice launched {name}")
     src = "clustertracking_tpu_torch/csrc/"
@@ -1639,6 +2176,22 @@ def main():
             source=src + ("fused_lm_2d.cu" if route == "fused"
                           else "pixel_lm.cu"),
             replaces=lm + kernel_line[route], launches=np_[(name, route)],
+            **entry))
+    # the calibration workflow: inv_series_2 in the refit with the learned
+    # coefficients, the n-gon pose in dimer_global's fixed-distance refit
+    kernels.append(dict(name="fused_lm_2d [inv_series_2, train]",
+                        route="cuda", source=src + "fused_lm_2d.cu",
+                        replaces=lm + "1213", **kt))
+    kernels.append(dict(name="fused_lm_2d [rigid n-gon, global]",
+                        route="cuda", source=src + "fused_lm_2d.cu",
+                        replaces=lm + "570", **kg))
+    # the gather of the calibration path: the global buckets' solves and
+    # the pooled normal equations (train._global_eq, refine._dist_eq)
+    for what, entry in (("train", gt), ("global", gg)):
+        kernels.append(dict(
+            name=f"window_gather [{what}]", route="cuda",
+            source=src + "window_gather.cu",
+            replaces="clustertracking_tpu/ops/pallas_gather.py:144",
             **entry))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

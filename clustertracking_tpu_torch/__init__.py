@@ -12,8 +12,10 @@ held against.
 
 Public API of this slice::
 
-    find_clusters, refine_leastsq          (DataFrame in / out; need pandas)
-    dimer, trimer, tetramer, dimer_global  (constraints=)
+    locate, find_clusters, refine_leastsq  (DataFrame in / out; need pandas)
+    train_leastsq                          (learns 'global' parameters)
+    dimer, trimer, tetramer, dimer_global  (constraints=; dimer_global()
+                                            fits one distance per video)
     entry, example_batch                   (the main path at array level)
     entry_3d, example_batch_3d             (config 4, 3D z-stacks)
     entry_rigid, example_batch_rigid       (configs 3, 3b, 3c: rigid)
@@ -29,7 +31,8 @@ from .entry import (
     entry, entry_3d, entry_rigid, example_batch, example_batch_3d,
     example_batch_rigid)
 from .find import Clusters, find_clusters
-from .refine import refine_leastsq
+from .pipeline import locate
+from .refine import refine_leastsq, train_leastsq
 
 __version__ = "0.1.0"
 
@@ -49,8 +52,10 @@ __all__ = [
     "find_clusters",
     "models",
     "ops",
+    "locate",
     "refine_leastsq",
     "tetramer",
+    "train_leastsq",
     "trimer",
     "utils",
 ]

@@ -21,15 +21,23 @@ cluster of the bucket together:
 - ``compute_error=True`` adds ``<name>_std`` columns from the
   Gauss–Newton covariance (through the pose map for rigid fits);
 - clusters bigger than ``max_cluster_size`` spill to the host scipy path
-  (hostref.py).
+  (hostref.py);
+- 'global' parameter modes (the default of the inv_series coefficients)
+  tie their slots across each dispatch's lanes through
+  ``ops/lm.py::lm_solve_global``, on the device of the frames (no kernel
+  takes a tied slot, as in the reference); a rigid distance tied across
+  every cluster (``dimer_global()``'s default) alternates a pooled Newton
+  step on the whole video's distance with a refit at that distance fixed
+  (``_joint_global_dist``), and reports it in ``out.attrs``.
 
-Not ported yet, and refused with ``NotImplementedError``: 'global'
-parameter modes and globally tied rigid distances (``dimer_global()``'s
-default; ROADMAP queue 1 item 8) and ``mesh=`` (queue 1 item 13).  pandas
-is imported by the DataFrame entry points only.
+Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
+(ROADMAP queue 1 item 13).  pandas is imported by the DataFrame entry
+points only.  ``train_leastsq`` (train.py) is exported from here too, as
+in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from functools import lru_cache
@@ -46,7 +54,7 @@ from .models.packing import build_layout
 from .models.registry import ModelSpec, get_model
 from .ops.fused_lm import fused_lm_2d, kernel_route
 from .ops.gather import gather_stack, origins_for, radius_mask
-from .ops.lm import lm_solve
+from .ops.lm import lm_solve, lm_solve_global
 from .ops.pixel_lm import pixel_lm
 from .ops.residual import make_model_fns
 from .ops.rigid import make_constrained_fns
@@ -56,7 +64,7 @@ from .utils import default_size_columns, guess_pos_columns, validate_tuple
 if TYPE_CHECKING:
     import pandas as pd
 
-__all__ = ["refine_leastsq"]
+__all__ = ["refine_leastsq", "train_leastsq"]
 
 _LANE_PAD = 32  # lanes are padded to multiples of this (reference parity)
 
@@ -171,20 +179,27 @@ def _bucket_solver(
                          f"one of {_GATHER_BACKENDS}")
     gather = window_gather if gather_backend == "auto" else gather_stack
     layout = build_layout(model, ndim, isotropic, n, dict(param_mode_key))
-    if np.any(layout.global_slots):
-        raise NotImplementedError(
-            "'global' parameter modes need lm_solve_global, not ported "
-            "yet (ROADMAP queue 1 item 8)"
-        )
-    _refuse_global_distance(constraint)
+    use_global = _uses_global(layout, constraint)
     pos_idx = list(layout.pos_param_idx)
-    route = kernel_route(model, layout, False, constraint, window_shape)
+    route = kernel_route(model, layout, use_global, constraint, window_shape)
     if lm_backend == "kernel" and route is None:
         raise ValueError(
             "lm_backend='kernel' unsupported for this configuration "
             f"(V={layout.n_slots} slots, window {window_shape}, "
-            f"constraint {getattr(constraint, 'name', None)!r})"
+            f"constraint {getattr(constraint, 'name', None)!r}, "
+            f"global-tied slots {use_global})"
         )
+    if use_global:
+        # the slots tied across lanes, over the solve's vector: a rigid
+        # bucket's is [pose, distance, std slots], so a shared distance is
+        # slot Qt - 1 and the model's slots follow at Qt + s
+        Qt = (pose_dim(constraint) + int(constraint.fit_dist)
+              if constraint is not None and constraint.kind == "rigid"
+              else 0)
+        gslots = np.zeros(Qt + layout.n_slots, dtype=bool)
+        if _global_distance(constraint):
+            gslots[Qt - 1] = True
+        gslots[Qt:] = layout.global_slots
 
     def solve(frames, frame_idx, params0, pose0, valid, fvalid=None):
         device = frames.device
@@ -229,7 +244,17 @@ def _bucket_solver(
                       window_shape=window_shape, lo=lo_np, hi=hi_np,
                       radius=radius, max_iter=lm_max_iter, ftol=ftol,
                       xtol=xtol, constraint=constraint)
-            if taken == "fused":
+            if use_global:
+                pixels = gather(frames, frame_idx, origin, window_shape)
+                mask = radius_mask(pos_at, origin, window_shape, radius,
+                                   fvalid=fvalid)
+                res = lm_solve_global(
+                    residual, residual_jac, vect, gslots,
+                    (params0, pixels, mask, origin, norm) + fv_extra,
+                    max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
+                    lower=lo_b, upper=hi_b, valid=need,
+                )._replace(npix=mask.sum(dim=1))
+            elif taken == "fused":
                 res = fused_lm_2d(vect, params0, frames, frame_idx, pos_at,
                                   origin, norm, need, fvalid, **kw)
             elif taken == "gathered":
@@ -335,17 +360,16 @@ def _bucket_solver(
     return solve, layout
 
 
-def _refuse_global_distance(constraint):
-    """A rigid distance tied across every cluster of the fit needs the
-    cross-lane solve the port does not have yet."""
-    if (constraint is not None and constraint.kind == "rigid"
-            and constraint.fit_dist and constraint.dist_mode == "global"):
-        raise NotImplementedError(
-            f"constraint {constraint.name!r} ties one distance across all "
-            "clusters (dist_mode='global'): that needs lm_solve_global and "
-            "the whole-video joint distance, not ported yet (ROADMAP queue "
-            "1 item 8); dimer_global(mode='cluster') fits one per cluster"
-        )
+def _global_distance(constraint) -> bool:
+    """A rigid constraint whose fitted distance is one for every cluster."""
+    return (constraint is not None and constraint.kind == "rigid"
+            and constraint.fit_dist and constraint.dist_mode == "global")
+
+
+def _uses_global(layout, constraint) -> bool:
+    """A bucket with slots tied across lanes: 'global' parameter modes or a
+    globally shared rigid distance (solved by ``lm_solve_global``)."""
+    return bool(np.any(layout.global_slots) or _global_distance(constraint))
 
 
 def _pack_results(params, rms, conv, iters, std, compute_error):
@@ -412,6 +436,32 @@ def _frames_of(reader, frame_numbers, ndim=None):
         fr = reader[int(t)]
         out[int(t)] = fr if isinstance(fr, torch.Tensor) else np.asarray(fr)
     return out
+
+
+def _stack_frames(images, chunk, device):
+    """The frames of ``chunk`` as one [T, *S] float32 tensor on ``device``."""
+    vals = [images[int(t)] for t in chunk]
+    if any(isinstance(v, torch.Tensor) for v in vals):
+        return torch.stack(
+            [torch.as_tensor(v, dtype=torch.float32, device=device)
+             for v in vals], dim=0
+        )
+    return torch.as_tensor(
+        np.stack(vals, axis=0).astype(np.float32), device=device
+    )
+
+
+def _resolve_device(device, who):
+    """``device``, or 'cuda' when it is None; raises ``RuntimeError`` where
+    no CUDA device exists and none was named."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who}: no CUDA device is available; it runs on the GPU "
+                "unless device='cpu' is passed"
+            )
+        device = "cuda"
+    return torch.device(device)
 
 
 def _nan_trap_raise(p, rms, model, ndim):
@@ -504,7 +554,17 @@ def refine_leastsq(
     for 3D and large 2D ones), 'kernel' (force the kernel route; its plain
     versions on CPU) or 'torch' (``lm_solve``).  Dispatches of constrained
     buckets are tagged with their kind: ``cuda-fused-rigid``,
-    ``cuda-torch-penalty``, ...
+    ``cuda-torch-penalty``, ...; buckets with slots tied across lanes
+    (``lm_solve_global``) add ``-global``: ``cuda-torch-global``,
+    ``cuda-torch-rigid-global``.
+
+    A rigid constraint with ``dist_mode='global'`` (``dimer_global()``)
+    fits ONE distance for the whole video: after the per-dispatch fits,
+    up to three rounds of a pooled damped Newton step on that distance
+    over every accepted cluster, each followed by a refit of that cluster
+    size's rows with the distance fixed; the result is in
+    ``out.attrs['global_dist']`` (the first such constraint) and
+    ``out.attrs['global_dists']`` ({cluster_size: distance}).
 
     ``constraints``: ``dimer``/``trimer``/``tetramer``/``dimer_global``
     objects or reference-style ``{'type': 'eq', 'fun': f, 'args': a,
@@ -516,20 +576,11 @@ def refine_leastsq(
             "mesh= (multi-device fits) is not ported yet (ROADMAP queue 1 "
             "item 13)"
         )
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "refine_leastsq: no CUDA device is available; the fit runs "
-                "on the GPU unless device='cpu' is passed"
-            )
-        device = "cuda"
-    device = torch.device(device)
+    device = _resolve_device(device, "refine_leastsq")
     if pos_columns is None:
         pos_columns = guess_pos_columns(f)
     ndim = len(pos_columns)
     con_map = wrap_constraint_dicts(constraints, ndim)
-    for con in con_map.values():
-        _refuse_global_distance(con)
     diameter = validate_tuple(diameter, ndim)
     radius = tuple(d / 2.0 for d in diameter)
     if separation is None:
@@ -668,13 +719,15 @@ def refine_leastsq(
         ).any():
             _nan_trap_raise(p, rms, model, ndim)
         con = p["con"]
+        ug = _uses_global(p["layout"], con)
         route = _route_taken(
             lm_backend,
-            kernel_route(model, p["layout"], False, con, p["wshape"]),
+            kernel_route(model, p["layout"], ug, con, p["wshape"]),
             device,
         )
         kind = "" if con is None else (
             "-rigid" if con.kind == "rigid" else "-penalty")
+        kind += "-global" if ug else ""
         diagnostics.record_batch(
             cluster_size=n,
             n_clusters=int(valid.sum()),
@@ -720,16 +773,7 @@ def refine_leastsq(
         chunk = frame_numbers[chunk_start : chunk_start + frames_per_dispatch]
         images = _frames_of(reader, chunk, ndim)
         frame_shape = tuple(images[int(chunk[0])].shape)
-        vals = [images[int(t)] for t in chunk]
-        if any(isinstance(v, torch.Tensor) for v in vals):
-            stack = torch.stack(
-                [torch.as_tensor(v, dtype=torch.float32, device=device)
-                 for v in vals], dim=0
-            )
-        else:
-            stack = torch.as_tensor(
-                np.stack(vals, axis=0).astype(np.float32), device=device
-            )
+        stack = _stack_frames(images, chunk, device)
         frame_local = {int(t): i for i, t in enumerate(chunk)}
         sub = f[f[t_column].isin(chunk)]
 
@@ -881,7 +925,207 @@ def refine_leastsq(
     if compute_error:
         for name, col in std_cols.items():
             out[name + "_std"] = col
+
+    gcons = [c for c in con_map.values() if _global_distance(c)]
+    if gcons:
+        refreshed = list(param_names) + [
+            "cost", "fit_converged", "fit_n_iter"]
+        if compute_error:
+            refreshed += [name + "_std" for name in param_names]
+        global_dists = {}
+        for gcon in gcons:
+            n = gcon.cluster_size
+            d_prev = None
+            for _ in range(3):
+                acc = out[(out["cluster_size"] == n) & out["cost"].notna()]
+                if not len(acc):
+                    break
+                # the start: the mean distance within each cluster, its
+                # rows grouped by cluster first.  (Rows need not come in
+                # cluster order — locate's come brightest first — and the
+                # reference reshapes them as they come,
+                # clustertracking_tpu/refine.py:1603, starting from the
+                # distance between unrelated features; ROADMAP queue 3.)
+                posf = acc.sort_values("cluster", kind="stable")[
+                    pos_columns].to_numpy(dtype=float).reshape(-1, n, ndim)
+                rel = posf - posf.mean(axis=1, keepdims=True)
+                d0 = float(np.linalg.norm(rel, axis=-1).mean()
+                           / circumradius_factor(n, ndim))
+                d_star = _joint_global_dist(
+                    acc, reader, n, model, ndim, isotropic, radius,
+                    separation, param_names, t_column, frames_per_dispatch,
+                    d0, device)
+                if d_star is None:
+                    break
+                converged = d_prev is not None and (
+                    abs(d_star - d_prev) <= 1e-4 * max(d_star, 1e-6))
+                d_prev = d_star
+                if converged:
+                    break
+                # refit only this cluster size's rows, the distance fixed
+                fixed = [dataclasses.replace(c, dist=float(d_star))
+                         if c is gcon else c for c in con_map.values()]
+                sub_mask = out["cluster_size"] == n
+                sub = refine_leastsq(
+                    out[sub_mask], reader, diameter, separation,
+                    fit_function=model, param_mode=param_mode,
+                    param_val=param_val, constraints=fixed, bounds=bounds,
+                    compute_error=compute_error, pos_columns=pos_columns,
+                    t_column=t_column, max_iter=max_iter,
+                    max_shift=max_shift, max_rms_dev=max_rms_dev,
+                    residual_factor=residual_factor,
+                    max_cluster_size=max_cluster_size,
+                    frames_per_dispatch=frames_per_dispatch,
+                    lm_max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
+                    backend_find=backend_find, lm_backend=lm_backend,
+                    device=device,
+                )
+                for col in refreshed:
+                    if col in sub.columns:
+                        out.loc[sub_mask, col] = sub[col]
+            if d_prev is not None:
+                global_dists[int(n)] = float(d_prev)
+        if global_dists:
+            out.attrs["global_dist"] = next(iter(global_dists.values()))
+            out.attrs["global_dists"] = global_dists
     return out
+
+
+def _dist_eq(model, ndim, isotropic, n, window_shape, radius, device):
+    """The pooled normal equations of a shared rigid distance over one
+    bucket: ``accum(frames, frame_idx, params_fit, valid, d) -> (H, g,
+    cost)`` of the unnormalized residual with respect to the scalar ``d``,
+    with positions ``center + circ·d·u_i`` (u_i the unit offsets of each
+    fitted cluster) and the pixels and mask held at the fitted geometry.
+    The derivative is forward-mode (``torch.func.jvp``)."""
+    layout = build_layout(model, ndim, isotropic, n, {})
+    fns = make_model_fns(model, layout, window_shape, device=device)
+    pos_idx = list(layout.pos_param_idx)
+    p0 = pos_idx[0]  # positions are the ndim params after signal
+    circ = float(circumradius_factor(n, ndim))
+
+    def accum(frames, frame_idx, params_fit, valid, d):
+        pos = params_fit[..., pos_idx]                  # [B, n, D]
+        center = pos.mean(dim=1, keepdim=True)
+        rel = pos - center
+        u = rel / torch.clamp(torch.linalg.norm(rel, dim=-1, keepdim=True),
+                              min=1e-9)
+        origin = origins_for(pos, window_shape, tuple(frames.shape[1:]))
+        pixels = window_gather(frames, frame_idx, origin, window_shape)
+        mask = radius_mask(pos, origin, window_shape, radius)
+
+        def resid(dv):
+            newpos = center + circ * dv * u
+            params = torch.cat([params_fit[..., :p0], newpos,
+                                params_fit[..., p0 + ndim:]], dim=-1)
+            img = fns.image_from_params(params, origin)
+            return (img - pixels) * mask
+
+        r, dr = torch.func.jvp(resid, (d,), (torch.ones_like(d),))
+        w = valid.to(r.dtype)[:, None]
+        return (torch.sum(dr * dr * w), torch.sum(dr * r * w),
+                torch.sum(r * r * w))
+
+    return accum
+
+
+def _pooled_buckets(rows, reader, ndim, radius, separation, param_names,
+                    t_column, frames_per_dispatch, make_accum, device):
+    """(accum, args) per (frame chunk × cluster size) of ``rows``, for a
+    step on normal equations pooled over a whole video:
+    ``make_accum(n, window_shape)`` builds one cluster size's
+    accumulator, and ``args = (frames, frame_idx, params, valid)`` (lanes
+    padded to ``_LANE_PAD``) stay on ``device``, so a trial value of the
+    shared quantity moves only that value."""
+    frame_numbers = sorted(rows[t_column].unique())
+    buckets = []
+    P = len(param_names)
+    for cs in range(0, len(frame_numbers), frames_per_dispatch):
+        chunk = frame_numbers[cs : cs + frames_per_dispatch]
+        images = _frames_of(reader, chunk, ndim)
+        frame_shape = tuple(images[int(chunk[0])].shape)
+        stack = _stack_frames(images, chunk, device)
+        frame_local = {int(t): i for i, t in enumerate(chunk)}
+        sub = rows[rows[t_column].isin(chunk)]
+        for n, grp in sub.groupby("cluster_size"):
+            n = int(n)
+            grp = grp.sort_values("cluster", kind="stable")
+            if len(grp) % n != 0:
+                continue  # inconsistent block (refine guards upstream)
+            B = len(grp) // n
+            flat = np.zeros((len(grp), P), np.float32)
+            for j, name in enumerate(param_names):
+                flat[:, j] = grp[name].to_numpy(dtype=float)
+            Bpad = max(_LANE_PAD, -(-B // _LANE_PAD) * _LANE_PAD)
+            params = np.zeros((Bpad, n, P), np.float32)
+            params[:B] = flat.reshape(B, n, P)
+            params[B:] = params[0]
+            fidx = np.zeros(Bpad, np.int32)
+            fidx[:B] = [frame_local[int(t)] for t in
+                        grp[t_column].to_numpy().reshape(B, n)[:, 0]]
+            valid = np.zeros(Bpad, bool)
+            valid[:B] = True
+            wshape = _window_shape(n, ndim, radius, separation, frame_shape)
+            buckets.append((make_accum(n, wshape), (
+                stack, torch.as_tensor(fidx, device=device),
+                torch.as_tensor(params, device=device),
+                torch.as_tensor(valid, device=device))))
+    return buckets
+
+
+def _pooled_eq(buckets, x):
+    """The pooled normal equations ``(H, g, cost)`` at the shared value
+    ``x``: every bucket's sums at ``x`` (float32, on the buckets' device),
+    added in float64 on the host after one transfer."""
+    device = buckets[0][1][0].device
+    xt = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    parts = [accum(*args, xt) for accum, args in buckets]
+    per = torch.stack([torch.cat([t.reshape(-1) for t in p])
+                       for p in parts]).cpu().numpy()
+    tot = np.zeros(per.shape[1])
+    for row in per.astype(np.float64):
+        tot += row
+    H, g, cost = np.split(tot, np.cumsum([t.numel() for t in parts[0]])[:-1])
+    return (H.reshape(parts[0][0].shape), g.reshape(parts[0][1].shape),
+            float(cost[0]))
+
+
+def _joint_global_dist(acc, reader, n, model, ndim, isotropic, radius,
+                       separation, param_names, t_column,
+                       frames_per_dispatch, d0, device):
+    """One video-wide rigid distance for the accepted ``n``-clusters in
+    ``acc``: damped Newton from ``d0`` on the normal equations pooled over
+    every dispatch (``_dist_eq``, ``_pooled_eq``)."""
+    buckets = _pooled_buckets(
+        acc, reader, ndim, radius, separation, param_names, t_column,
+        frames_per_dispatch,
+        lambda n, wshape: _dist_eq(model, ndim, isotropic, n, wshape,
+                                   tuple(radius), device),
+        device)
+    if not buckets:
+        return None
+
+    def eval_at(dv):
+        return tuple(float(v) for v in _pooled_eq(buckets, dv))
+
+    d = float(d0)
+    Hx, gx, cx = eval_at(d)
+    lam = 1e-3
+    for _ in range(25):
+        delta = -gx / max(Hx * (1.0 + lam), 1e-12)
+        dt = max(d + delta, 1e-3)
+        Ht, gt, ct_ = eval_at(dt)
+        if ct_ < cx:
+            moved = abs(dt - d)
+            d, Hx, gx, cx = dt, Ht, gt, ct_
+            lam = max(lam * 0.25, 1e-8)
+            if moved < 1e-5 * max(abs(d), 1e-6):
+                break
+        else:
+            lam *= 4.0
+            if lam > 1e10:
+                break
+    return d
 
 
 def _host_profile(model):
@@ -962,3 +1206,8 @@ def _spill_scipy(
             wall_s=time.perf_counter() - t_dispatch,
             backend="scipy",
         )
+
+
+# train_leastsq lives in train.py, which imports this module's bucket
+# machinery; the import sits at the bottom to avoid a cycle.
+from .train import train_leastsq  # noqa: E402

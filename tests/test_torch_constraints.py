@@ -11,8 +11,10 @@ constrained fits, held to the JAX package on the same numpy inputs.
   ``refine_leastsq`` in both packages (the port on the CPU: lm_solve):
   positions and sizes to 1e-3 px, bond lengths as the reference asserts
   them, plus the reference's own ground-truth bounds.
-- What the port refuses: a globally tied distance (``NotImplementedError``
-  naming ROADMAP queue 1 item 8) and a constraint of the wrong ndim.
+- What the port refuses: ``mesh=`` with a globally tied distance
+  (``NotImplementedError`` naming ROADMAP queue 1 item 13; the distance
+  itself runs, tests/test_torch_global.py) and a constraint of the wrong
+  ndim.
 
 Every constraint is built once, in the reference, and carried into the
 port by ``interop.constraint_from_reference``.
@@ -251,14 +253,32 @@ def test_constraint_wrong_ndim_raises():
                        constraints=pc.dimer(3.0, ndim=3))
 
 
+def _global_frame():
+    img, f, true = _frame2d(2, 2.5, 5.0, 0.3, 1)
+    kw = dict(diameter=9, separation=5.5, constraints=pc.dimer_global(ndim=2),
+              param_val={"size": 2.5})
+    return img, f, true, kw
+
+
 def test_global_distance_raises_not_implemented():
+    """What still raises for dimer_global()'s whole-video distance is its
+    multi-device form, mesh= (ROADMAP queue 1 item 13)."""
+    img, f, _, kw = _global_frame()
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        refine_leastsq(f, img, mesh=object(), **kw)
+
+
+def test_global_distance_runs():
     """dimer_global()'s default ties one distance across the whole fit:
-    that needs lm_solve_global, not ported yet."""
-    img, f, _ = _frame2d(2, 2.5, 5.0, 0.3, 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        refine_leastsq(f, img, diameter=9, separation=5.5,
-                       constraints=pc.dimer_global(ndim=2),
-                       param_val={"size": 2.5})
+    it runs (lm_solve_global and the whole-video distance; held to the
+    reference in tests/test_torch_global.py), fits the drawn bond and
+    reports it in attrs."""
+    img, f, true, kw = _global_frame()
+    out = refine_leastsq(f, img, **kw)
+    assert abs(out.attrs["global_dist"] - 5.0) < 0.02
+    np.testing.assert_allclose(_edges(out[["y", "x"]].to_numpy()),
+                               out.attrs["global_dist"], atol=1e-4)
+    assert np.abs(out[["y", "x"]].to_numpy() - true).max() < 0.05
 
 
 def _broad_dimer_frame(size, start):

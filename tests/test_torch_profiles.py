@@ -4,10 +4,11 @@ kernel vs plain for each profile.
 
 The profiles: ring (thickness, 'cluster' mode), hat (disc_size,
 'cluster'), disc (no extras) and inv_series_2 (both coefficients in 'var'
-mode; the default 'global' mode needs lm_solve_global).  Scenes are
-tests/test_pallas_lm.py's 2D dimers drawn with each profile (inv_series
-with the gauss it approximates), B=4, 9×9 windows, max_iter=6, starts
-perturbed by ±0.2 px and the extras started off their true values.  The
+mode; the default 'global' mode takes lm_solve_global, no kernel).
+Scenes are tests/test_pallas_lm.py's 2D dimers drawn with each profile
+(inv_series with the gauss it approximates), B=4, 9×9 windows,
+max_iter=6, starts perturbed by ±0.2 px and the extras started off their
+true values.  The
 plain versions (``fused_lm_2d_reference``, ``pixel_lm_reference``) are
 held to ``make_pallas_lm(...)`` run as the JAX package's own tests run it
 on the CPU (interpret mode): positions, sizes and extras to 1e-4
