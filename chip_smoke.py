@@ -15,12 +15,14 @@ B=2,048 and 16,384 (kernel alone with L2 flushed, per call, host time per
 call).
 
 Drives the port (``clustertracking_tpu_torch``; no JAX) through its main
-paths, the bucketed cluster fit, at the reference's own sizes: 16,384
-two-Gaussian dimers on 64 frames of 256×256 in 13×13 windows (bench.py's
-configuration), config 4 of benchmarks/suite.py, 2,048 anisotropic 3D
-dimers in 8 z-stacks of 64×192×192 in 9×13×13 windows, and the rigid
-cells, configs 3 (4,096 dimers, 4,096 trimers), 3b and 3c (2,048 3D
-dimers, 2,048 tetramers).  Phases, one line or more each:
+paths, the bucketed cluster fit and the pipelines around it, at the
+reference's own sizes: 16,384 two-Gaussian dimers on 64 frames of
+256×256 in 13×13 windows (bench.py's configuration), config 4 of
+benchmarks/suite.py, 2,048 anisotropic 3D dimers in 8 z-stacks of
+64×192×192 in 9×13×13 windows, the rigid cells, configs 3 (4,096
+dimers, 4,096 trimers), 3b and 3c (2,048 3D dimers, 2,048 tetramers),
+and the tracking videos of configs 2 and 5.  Phases, one line or more
+each:
 
 1. device   — fail unless CUDA is available; the card's name and power
               limit as nvidia-smi reports them;
@@ -97,9 +99,32 @@ dimers, 2,048 tetramers).  Phases, one line or more each:
               px on every accepted dimer, window_gather bit-equal to
               gather_stack on the first global bucket's windows and timed,
               and the n-gon fused_lm_2d vs plain on the fixed-distance
-              refit's first launch.
+              refit's first launch;
+20. find    — the device label propagation (float64) at separation 6 on
+              config 5's first frame of locate candidates (4 frames of
+              1024×1024, 5,000 dimers, seed 5: benchmarks/suite.py's
+              config 5), uniform points at its density (N = 8,192 to
+              65,536) and a 1,000-point chain: labels equal to the exact
+              partition's, to the CPU propagation's up to N = 10,000, and
+              to the host's wherever its float test decides every pair
+              exactly; ms against the host, propagation rounds;
+21. link    — the host Linker, the dense and the binned auction on the
+              truth rows of configs 2 and 5: the card's auction equal to
+              the CPU's particle for particle, 'auto' resolving to each,
+              trajectories equal to the host's (config 2) or on 99.9% of
+              rows (config 5); ms per frame, rounds and host syncs;
+22. track   — config 2's video through track (suite.py's kwargs): frames/s,
+              the loss ledger, accuracy and recall against the truth,
+              diffusion constants beside the scene's; the first 8 frames
+              on the card against the CPU; checkpointed and resumed
+              against the single-shot host-linked run; fused_lm_2d vs
+              plain on its first launch;
+23. track5  — config 5 through track: the binned auction, fused_lm_2d and
+              window_gather launches, dispatches by tag, accuracy, the
+              device's idle share; both kernels vs plain on their first
+              launches.
 
-A [time] line follows each phase (17-19 also print their own seconds).
+A [time] line follows each phase (17-23 also print their own seconds).
 Then one JSON line describing each
 kernel (with its bound: the larger of its FP32 operations over the card's
 peak and its bytes over the memory rate), and last the contract line
@@ -179,6 +204,33 @@ TRAIN_TOL = 0.05      # |learned - truth|, test_train.py's tolerance
 TRAIN_POS_TOL = 0.03  # px, test_train_feeds_back_into_refine's
 GLOBAL_DIST_TOL = 0.02
 GLOBAL_PTP_TOL = 1e-3
+# the tracking pipeline: config 2 is _video()'s scene (LOC_*), config 5
+# benchmarks/suite.py::config5's: 4 frames of 1024², 5,000 dimers, seed 5
+C5_FRAMES = 4
+C5_SHAPE = (1024, 1024)
+C5_DIMERS = 5000
+C5_SEED = 5
+FIND_SEP = 6.0
+FIND_DENSITY = 0.0095  # config 5's features per px²
+FIND_NS = (8192, 16384, 32768, 65536)
+FIND_CPU_MAX = 10000   # sets up to this size also propagate on the host
+FIND_REPS = 5          # timed calls per set, median reported
+LINK_AGREE = 0.999     # config 5: share of rows in identical trajectories
+TRACK_KW = dict(diameter=LOC_DIAMETER, separation=LOC_SEPARATION,
+                search_range=3.0, memory=6, link_backend="device")
+TRACK5_KW = dict(diameter=LOC_DIAMETER, separation=LOC_SEPARATION,
+                 search_range=3.0, memory=2, link_backend="auto",
+                 max_features=16384, max_cluster_size=40)
+TRACK_ERR = 0.05       # px, median position error of tracked rows
+# config 5 packs 10,000 features a frame: blended pairs and chains put the
+# median at 0.075 px in the reference without recovery passes
+# (benchmarks/RESULTS.md:96), and the port's plain route matches it
+TRACK5_ERR = 0.08
+TRACK_RECALL = 0.9     # share of truth feature-frames tracked within 1 px
+TRACK_CPU_FRAMES = 8   # frames of config 2 tracked on the card and the CPU
+TRACK_POS_ATOL = 1e-3  # px, kernel route against the plain one
+CKPT_POS_ATOL = 1e-5   # px, checkpointed against single-shot
+D_TRUTH = (0.125, 0.005)  # _video(): step σ 0.5 px per axis, 0.1 rad
 # bound_ms: the least time an NVIDIA H100 SXM could take (NVIDIA's data
 # sheet, at its 700 W limit): float32 outside the tensor cores, and the
 # device memory rate.
@@ -904,17 +956,18 @@ def _device_ms(prof):
     ms.  Only the device's own events count: a CPU op such as aten::sum
     reports its kernels' time as its own too, the record_function ranges
     are device spans that hold kernels, and the profiler's own buffer
-    requests are not the program's work."""
+    requests are not the program's work.  It reads the profiler's raw
+    events: key_averages() takes ~80 µs an event, minutes for a pipeline
+    of 1e5 small kernels."""
     from torch.autograd import DeviceType
 
     out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if (t > 0 and e.device_type == DeviceType.CUDA
-                and e.key != "Activity Buffer Request"
-                and not e.key.startswith(("refit_round", "fit_bucket"))):
-            out[e.key] = out.get(e.key, 0.0) + t / 1e3
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+                and name != "Activity Buffer Request"
+                and not name.startswith(("refit_round", "fit_bucket"))):
+            out[name] = out.get(name, 0.0) + e.duration_ns() / 1e6
     return out
 
 
@@ -1862,8 +1915,8 @@ def _gather_replay(first, what, smi):
     frames, fidx, origin, window = first.args
     g = _gather_cell(frames, fidx, origin, window, GATHER_REPS)
     bound = _bound(g["bytes"], 0)
-    print(f"[{what}] {smi}: window_gather on the first global bucket's "
-          f"windows (B={len(fidx)}, window {window}), bit-equal to "
+    print(f"[{what}] {smi}: window_gather on the path's first gather "
+          f"(B={len(fidx)}, window {window}), bit-equal to "
           f"gather_stack; L2 flushed before each kernel-alone call: "
           + "; ".join(_fmt_gather(name, g[v], bound["bound_ms"])
                       for v, name in (("kernel", "window_gather"),
@@ -1874,10 +1927,19 @@ def _gather_replay(first, what, smi):
                 library_ms=g["plain"]["call"])
 
 
-def _replay(first, what, smi):
+def _lanes(res, keep):
+    """The lanes ``keep`` of an LMResult."""
+    return type(res)(*(None if v is None else v[keep] for v in res))
+
+
+def _replay(first, what, smi, cap_by_cost=False):
     """fused_lm_2d vs its plain version on a main path's first launch
     (``_FirstLaunch``): agreement, ms, bound.  Returns the kernels-line
-    entry without its launches."""
+    entry without its launches.  ``cap_by_cost``: lanes that run to the
+    iteration cap in either version sit on a flat minimum (a dense
+    scene's blended pairs fitted as one feature), where the two roundings
+    end at the same cost a few 1e-3 px apart, as ring fits do (ROADMAP
+    queue 3, accepted): they are held by cost, the others by every gate."""
     import torch
 
     from clustertracking_tpu_torch.ops.rigid import rigid_kernel_slots
@@ -1895,17 +1957,33 @@ def _replay(first, what, smi):
     res_p, plain_ms = _timed(lambda: plain(args, kw))
     res_k = call(args, kw)
     torch.cuda.synchronize()
+    note, max_err = "", None
+    if cap_by_cost:
+        cap = ((res_k.n_iter >= kw["max_iter"])
+               | (res_p.n_iter >= kw["max_iter"]))
+        ck, cp = res_k.cost[cap].cpu().numpy(), res_p.cost[cap].cpu().numpy()
+        cap_rel = float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp),
+                                                           1e-30),
+                               initial=0.0))
+        max_err = float(np.abs(res_k.x.cpu().numpy()[:, pos]
+                               - res_p.x.cpu().numpy()[:, pos]).max())
+        note = (f"; {int(cap.sum())} lanes ran to the {kw['max_iter']}-"
+                f"iteration cap in either version, held by cost only: max "
+                f"cost rel {cap_rel:.3e}, max |dpos| of all lanes "
+                f"{max_err:.3e} px")
+        check(cap_rel <= COST_RTOL, f"{what}: cost disagrees at the cap")
+        res_k, res_p = _lanes(res_k, ~cap), _lanes(res_p, ~cap)
     a = _agreement(res_k, res_p, pos)
     ms = _cuda_ms(lambda: call(args, kw), 5)
     bound = _lm_bound(res_k, args, kw)
     print(f"[{what}] {smi}: fused_lm_2d vs plain on the first launch "
           f"(B={len(res_k.cost)}, window {kw['window_shape']}, profile "
-          f"{kw['model'].name}{', ' + con.name if con else ''}): {_fmt(a)}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{kw['model'].name}{', ' + con.name if con else ''}): {_fmt(a)}"
+          f"{note}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; time over "
           f"bound {ms / bound['bound_ms']:.1f}x)", flush=True)
-    return dict(max_abs_err=a["pos"], ms=ms, plain_ms=plain_ms, **bound,
-                library_ms=None)
+    return dict(max_abs_err=a["pos"] if max_err is None else max_err, ms=ms,
+                plain_ms=plain_ms, **bound, library_ms=None)
 
 
 def phase_train(device, smi):
@@ -2067,6 +2145,419 @@ def phase_global(frames, truth, raw, device, smi):
             dict(launches=n["window_gather"], **gather))
 
 
+def _min_index_labels(labels):
+    """Each point's smallest index in its component: the raw labels the
+    label propagation converges to on that partition."""
+    _, inv = np.unique(labels, return_inverse=True)
+    first = np.full(inv.max() + 1 if len(inv) else 0, len(labels))
+    np.minimum.at(first, inv, np.arange(len(labels)))
+    return first[inv]
+
+
+def _exact_labels(coords, sep):
+    """Root labels of the "distance <= sep" graph with every candidate
+    pair decided in exact rational arithmetic, and the number of pairs on
+    which the host's float test (cKDTree over coords / sep) decides
+    otherwise."""
+    from fractions import Fraction
+
+    from scipy.spatial import cKDTree
+
+    host_pairs = cKDTree(coords / sep).query_pairs(1.0)
+    s2 = Fraction(sep) ** 2
+    parent = np.arange(len(coords))
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    differ = 0
+    for i, j in cKDTree(coords).query_pairs(sep * (1 + 1e-9)):
+        d2 = sum((Fraction(a) - Fraction(b)) ** 2
+                 for a, b in zip(coords[i], coords[j]))
+        near = d2 <= s2
+        differ += near != ((i, j) in host_pairs)
+        if near:
+            ri, rj = find(i), find(j)
+            parent[max(ri, rj)] = min(ri, rj)
+    return np.array([find(i) for i in range(len(coords))]), differ
+
+
+def _median_ms(fn, reps, sync=None):
+    """Median wall ms of ``reps`` calls (after one untimed call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        if sync is not None:
+            sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_find(c5_frame0, device, smi):
+    """Device cluster finding (label propagation, float64) at separation
+    6 against the exact partition, the CPU and the host's cKDTree +
+    union-find, and timed against the host: config 5's first frame of
+    candidates, uniform points at config 5's density, a long chain."""
+    import torch
+
+    from clustertracking_tpu_torch.find import (
+        _canonicalize, _labels_device, host_connected_components)
+    from clustertracking_tpu_torch.ops.find import _block_rows
+    from clustertracking_tpu_torch.ops.find import (
+        connected_components as cc)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(8)
+    sets = {"config 5 frame 0": c5_frame0}
+    for n in FIND_NS:
+        side = np.sqrt(n / FIND_DENSITY)
+        sets[f"uniform N={n}"] = rng.uniform(0, side, (n, 2))
+    # spacing 5 at separation 6: each point joins its two neighbours only
+    sets["chain N=1000"] = np.stack([np.zeros(1000), np.arange(1000) * 5.0],
+                                    axis=-1)
+    times = {}
+    for name, coords in sets.items():
+        N = len(coords)
+        host = host_connected_components(coords, FIND_SEP)
+        exact, misjudged = _exact_labels(coords, FIND_SEP)
+        card = _labels_device(coords, FIND_SEP, device)
+        rounds = cc.last_rounds
+        check(np.array_equal(card, _min_index_labels(exact)),
+              f"find {name}: the card's labels are not the exact partition's "
+              "least indices")
+        # the host's float test rounds coords / sep first, so it can leave
+        # out a pair at exactly the separation (integer candidates)
+        same_host = np.array_equal(_canonicalize(card), _canonicalize(host))
+        check(same_host or misjudged,
+              f"find {name}: the card's clusters differ from the host's")
+        if N <= FIND_CPU_MAX:
+            cpu = _labels_device(coords, FIND_SEP, "cpu")
+            check(np.array_equal(card, cpu),
+                  f"find {name}: card and CPU raw labels differ")
+            raw_vs = "the CPU propagation's"
+        else:
+            raw_vs = f"(no CPU run above N = {FIND_CPU_MAX:,})"
+        host_ms = _median_ms(
+            lambda: host_connected_components(coords, FIND_SEP), FIND_REPS)
+        card_ms = _median_ms(
+            lambda: _labels_device(coords, FIND_SEP, device), FIND_REPS,
+            torch.cuda.synchronize)
+        times[name] = (host_ms, card_ms)
+        print(f"[find] {smi}: {name}: {len(set(exact.tolist()))} clusters; "
+              f"card labels equal the exact partition's least indices and "
+              f"{raw_vs} raw; "
+              f"the host's {len(set(host.tolist()))} clusters "
+              f"{'equal them' if same_host else 'differ'} ({misjudged} pairs "
+              f"at the separation that the host's float test decides "
+              f"otherwise); "
+              f"{rounds} propagation rounds, {_block_rows(N)} rows a block; "
+              f"host {host_ms:.2f} ms, card {card_ms:.2f} ms (median of "
+              f"{FIND_REPS}, coordinates in and labels out included)",
+              flush=True)
+    faster = [n for n in FIND_NS
+              if times[f"uniform N={n}"][1] < times[f"uniform N={n}"][0]]
+    print(f"[find] {smi}: the card is faster than the host at uniform N in "
+          f"{faster} (of {list(FIND_NS)}); 'auto' keeps the reference's "
+          f"threshold of 100,000; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def _partition(ids):
+    """Ids relabelled in order of first appearance: equal arrays mean the
+    same partition of the rows."""
+    _, first, inv = np.unique(ids, return_index=True, return_inverse=True)
+    rank = np.empty(len(first), dtype=np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    return rank[inv]
+
+
+def _rows_in_identical_trajectories(p1, p2):
+    """Rows whose trajectory (the rows sharing their id) is the same set
+    under both labelings."""
+    def groups(p):
+        rows = {}
+        for i, pid in enumerate(p.tolist()):
+            rows.setdefault(pid, []).append(i)
+        return [tuple(rows[pid]) for pid in p.tolist()]
+
+    return sum(a == b for a, b in zip(groups(p1), groups(p2)))
+
+
+def _linker_stats(backend):
+    from clustertracking_tpu_torch.ops.link import (
+        link_on_device, link_on_device_binned)
+
+    st = (link_on_device if backend == "device"
+          else link_on_device_binned).last_stats
+    return (f"rounds per frame mean {np.mean(st['rounds']):.2f} max "
+            f"{max(st['rounds'])}, host syncs per frame mean "
+            f"{np.mean(st['syncs']):.2f} max {max(st['syncs'])}")
+
+
+def phase_link(c2_truth, c5_truth, device, smi):
+    """The host Linker, the dense auction and the binned auction on the
+    truth rows of config 2 (100 frames x 100 features, memory 6) and
+    config 5 (4 frames x 10,000, memory 2), search range 3."""
+    import torch
+
+    from clustertracking_tpu_torch import link
+
+    t_phase = time.perf_counter()
+    scenes = (("config 2", c2_truth, 6, "device"),
+              ("config 5", c5_truth, 2, "device-binned"))
+    for name, truth, memory, want in scenes:
+        f = truth[["frame", "y", "x"]].reset_index(drop=True)
+        T = int(f["frame"].nunique())
+        kw = dict(memory=memory)
+
+        def timed(frame_rows, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = link(frame_rows, 3.0, **kw, **k)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        auto = link(f, 3.0, backend="auto", device=device, **kw)
+        check(auto.attrs["link_backend"] == want,
+              f"{name}: 'auto' took {auto.attrs['link_backend']}")
+        host, host_ms = timed(f, backend="host")
+        card, card_ms = timed(f, backend=want, device=device)
+        card_stats = _linker_stats(want)
+        cpu = link(f, 3.0, backend=want, device="cpu", **kw)
+        check(np.array_equal(card["particle"].to_numpy(),
+                             cpu["particle"].to_numpy()),
+              f"{name}: {want} on the card and on the CPU differ")
+        check(np.array_equal(card["particle"].to_numpy(),
+                             auto["particle"].to_numpy()),
+              f"{name}: 'auto' and {want} differ")
+        same = _rows_in_identical_trajectories(card["particle"].to_numpy(),
+                                               host["particle"].to_numpy())
+        other = "device-binned" if want == "device" else "device"
+        rows = f if want == "device" else f[f["frame"] < 2]
+        T_other = int(rows["frame"].nunique())
+        link(rows, 3.0, backend=other, device=device, **kw)   # warm-up
+        _, other_ms = timed(rows, backend=other, device=device)
+        print(f"[link] {smi}: {name} truth, {T} frames x "
+              f"{len(f) // T} features, memory {memory}: 'auto' takes "
+              f"{want}; ms per frame: host {host_ms / T:.2f}, {want} "
+              f"{card_ms / T:.2f} ({card_stats}), {other} "
+              f"{other_ms / T_other:.2f} over {T_other} frames "
+              f"({_linker_stats(other)}); {want} equals the CPU's particle "
+              f"for particle; {same} of {len(f)} rows in trajectories "
+              f"identical to the host Linker's ({len(f) - same} differ); "
+              f"trajectories: host {host['particle'].nunique()}, {want} "
+              f"{card['particle'].nunique()}", flush=True)
+        if want == "device":
+            check(np.array_equal(_partition(card["particle"].to_numpy()),
+                                 _partition(host["particle"].to_numpy())),
+                  f"{name}: the auction's trajectories differ from the host "
+                  "Linker's")
+        else:
+            check(same >= LINK_AGREE * len(f),
+                  f"{name}: {len(f) - same} rows in trajectories that differ "
+                  "from the host Linker's")
+    print(f"[link] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def _track_accuracy(out, truth):
+    """(median position error of tracked rows within 1 px of a truth
+    feature of their frame, share of truth feature-frames with a tracked
+    row within 1 px, median error of the members of resolved dimers: both
+    members tracked, by two distinct rows).  _video()'s truth rows come in
+    dimers, rows 2i and 2i + 1."""
+    from scipy.spatial import cKDTree
+
+    errs, pair_errs, hit = [], [], 0
+    for t, tr in truth.groupby("frame", sort=True):
+        o = out[out["frame"] == t][["y", "x"]].to_numpy()
+        want = tr[["y", "x"]].to_numpy()
+        if not len(o):
+            continue
+        d, _ = cKDTree(want).query(o, k=1)
+        errs.append(d[d < 1.0])
+        d2, j = cKDTree(o).query(want, k=1)
+        hit += int((d2 < 1.0).sum())
+        d2, j = d2.reshape(-1, 2), j.reshape(-1, 2)
+        ok = (d2 < 1.0).all(axis=1) & (j[:, 0] != j[:, 1])
+        pair_errs.append(d2[ok].ravel())
+    return (float(np.median(np.concatenate(errs))), hit / len(truth),
+            float(np.median(np.concatenate(pair_errs))))
+
+
+def _ledger(stats):
+    return ", ".join(f"{k} {v}" for k, v in stats.ledger.items())
+
+
+def _by_tag(stats):
+    """Dispatches, clusters and seconds of the fit by backend tag."""
+    out = {}
+    for b in stats.batches:
+        d = out.setdefault(b.backend, [0, 0, 0.0])
+        d[0] += 1
+        d[1] += b.n_clusters
+        d[2] += b.wall_s
+    return "; ".join(f"{k}: {n} dispatches, {c} clusters, {w:.3f} s"
+                     for k, (n, c, w) in sorted(out.items()))
+
+
+def _same_tracks(a, b, atol):
+    """The same rows in the same order, the same trajectory and cluster
+    partitions, positions within ``atol`` px; returns max |dpos|."""
+    check(len(a) == len(b) and np.array_equal(a["frame"].to_numpy(),
+                                             b["frame"].to_numpy()),
+          f"{len(a)} rows against {len(b)}")
+    dpos = float(np.abs(a[["y", "x"]].to_numpy()
+                        - b[["y", "x"]].to_numpy()).max()) if len(a) else 0.0
+    check(dpos <= atol, f"positions differ by {dpos} px")
+    for col in ("particle", "cluster"):
+        check(np.array_equal(_partition(a[col].to_numpy()),
+                             _partition(b[col].to_numpy())),
+              f"the {col} partitions differ")
+    return dpos
+
+
+def phase_track(frames, truth, device, smi):
+    """Config 2 through track (benchmarks/suite.py::config2's kwargs), the
+    kernel route against the CPU on 8 frames, and checkpoint + resume
+    against the single-shot host-linked run."""
+    import tempfile
+
+    import torch
+
+    from clustertracking_tpu_torch import diagnostics, motion, track
+
+    t_phase = time.perf_counter()
+    reader = _Stack(frames)
+    T = len(frames)
+    track(reader, device=device, **TRACK_KW)     # untimed: first-use costs
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _FirstLaunch(rigid=False) as first, diagnostics.collect() as stats:
+        out = track(reader, device=device, **TRACK_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _counts()
+    err, recall, pair_err = _track_accuracy(out, truth)
+    lengths = out.groupby("particle").size()
+    est = motion.diffusion_constants(out)
+    print(f"[track] {smi}: config 2, {T} frames of {frames.shape[1]}x"
+          f"{frames.shape[2]}: {T / wall:.2f} frames/s ({wall:.3f} s); "
+          f"ledger: {_ledger(stats)}; launches {n}; {len(out)} rows, "
+          f"median |pos - truth| {err:.4f} px, recall within 1 px "
+          f"{recall:.4f}; {out['particle'].nunique()} trajectories, "
+          f"{int((lengths >= 10).sum())} of 10 frames or more; median error "
+          f"of resolved dimers' members {pair_err:.4f} px; "
+          f"D_trans {est['D_trans']:.4f} ± {est['D_trans_std']:.4f} "
+          f"px²/frame (truth {D_TRUTH[0]}), D_rot {est['D_rot']:.5f} ± "
+          f"{est['D_rot_std']:.5f} rad²/frame (truth {D_TRUTH[1]}; not "
+          f"gated)", flush=True)
+    check(out.attrs["link_backend"] == "device",
+          f"track linked with {out.attrs['link_backend']}")
+    check(n["fused_lm_2d"] > 0, "track launched no fused_lm_2d")
+    check(err < TRACK_ERR, f"track median position error {err} px")
+    check(recall >= TRACK_RECALL, f"track recall {recall}")
+
+    few = _Stack(frames[:TRACK_CPU_FRAMES])
+    on_card = track(few, device=device, **TRACK_KW)
+    t0 = time.perf_counter()
+    on_cpu = track(few, device="cpu", **TRACK_KW)
+    cpu_s = time.perf_counter() - t0
+    dpos = _same_tracks(on_card, on_cpu, TRACK_POS_ATOL)
+    print(f"[track] {smi}: the first {TRACK_CPU_FRAMES} frames on the card "
+          f"and on the CPU ({cpu_s:.2f} s): {len(on_card)} rows alike, the "
+          f"same trajectories and clusters, max |dpos| {dpos:.2e} px (tol "
+          f"{TRACK_POS_ATOL})", flush=True)
+
+    ckw = {k: v for k, v in TRACK_KW.items() if k != "link_backend"}
+    single = track(reader, link_backend="host", device=device, **ckw)
+    with tempfile.TemporaryDirectory() as ck:
+        track(reader, checkpoint_dir=ck, checkpoint_every=16, n_frames=32,
+              device=device, **ckw)
+        t0 = time.perf_counter()
+        resumed = track(reader, checkpoint_dir=ck, checkpoint_every=16,
+                        device=device, **ckw)
+        resume_s = time.perf_counter() - t0
+    key = ["frame", "y", "x"]
+    a = resumed.sort_values(key).reset_index(drop=True)
+    b = single.sort_values(key).reset_index(drop=True)
+    check(len(a) == len(b), f"resumed {len(a)} rows, single-shot {len(b)}")
+    dpos = float(np.abs(a[["y", "x"]].to_numpy()
+                        - b[["y", "x"]].to_numpy()).max())
+    check(dpos <= CKPT_POS_ATOL, f"resumed rows off by {dpos} px")
+    check(np.array_equal(a["particle"].to_numpy(), b["particle"].to_numpy()),
+          "resumed particle ids differ from the single-shot run's")
+    print(f"[track] {smi}: checkpointed every 16 frames, stopped after 32, "
+          f"resumed ({resume_s:.2f} s for the last {T - 32} frames): "
+          f"{len(a)} rows, particle ids equal to the single-shot host-linked"
+          f" run's, max |dpos| {dpos:.2e} px (tol {CKPT_POS_ATOL})",
+          flush=True)
+    entry = _replay(first, "track", smi)
+    print(f"[track] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(launches=n["fused_lm_2d"], **entry)
+
+
+def phase_track5(frames, truth, device, smi):
+    """Config 5 through track (benchmarks/suite.py::config5's kwargs):
+    the binned auction, fused_lm_2d for the small clusters, window_gather
+    and lm_solve for the chains past the kernel's slots."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from clustertracking_tpu_torch import diagnostics, track
+
+    t_phase = time.perf_counter()
+    reader = _Stack(frames)
+    T = len(frames)
+    track(reader, device=device, **TRACK5_KW)    # untimed: first-use costs
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _FirstLaunch(rigid=False) as first, _FirstGather() as gathered, \
+            diagnostics.collect() as stats:
+        out = track(reader, device=device, **TRACK5_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _counts()
+    err, recall, pair_err = _track_accuracy(out, truth)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        track(reader, device=device, **TRACK5_KW)
+        torch.cuda.synchronize()
+    dev = sum(_device_ms(prof).values())
+    prof_s = time.perf_counter() - t0
+    sizes = out["cluster_size"].value_counts().sort_index().to_dict()
+    print(f"[track5] {smi}: config 5, {T} frames of {frames.shape[1]}x"
+          f"{frames.shape[2]}, {len(truth) // T} features a frame: "
+          f"{T / wall:.3f} frames/s ({wall:.3f} s); ledger: {_ledger(stats)};"
+          f" launches {n}; by tag: {_by_tag(stats)}; cluster sizes "
+          f"{sizes}; {len(out)} rows, median |pos - truth| {err:.4f} px, "
+          f"of resolved dimers' members {pair_err:.4f} px, "
+          f"recall within 1 px {recall:.4f}, {out['particle'].nunique()} "
+          f"trajectories; device busy {dev:.1f} ms: idle share "
+          f"{1.0 - dev / (wall * 1e3):.3f} of the unprofiled call (the "
+          f"profiled call and its trace {prof_s:.1f} s)", flush=True)
+    check(out.attrs["link_backend"] == "device-binned",
+          f"config 5 linked with {out.attrs['link_backend']}")
+    check(n["fused_lm_2d"] > 0, "config 5 launched no fused_lm_2d")
+    check(n["window_gather"] > 0, "config 5 launched no window_gather")
+    check(err < TRACK5_ERR, f"config 5 median position error {err} px")
+    entry = _replay(first, "track5", smi, cap_by_cost=True)
+    gather = _gather_replay(gathered, "track5", smi)
+    print(f"[track5] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return (dict(launches=n["fused_lm_2d"], **entry),
+            dict(launches=n["window_gather"], **gather))
+
+
 _T0 = time.perf_counter()
 
 
@@ -2132,6 +2623,24 @@ def main():
     _stamp("train")
     kg, gg = phase_global(frames, truth, raw, device, smi)
     _stamp("global")
+    del raw
+    from clustertracking_tpu_torch.pipeline import _locate_frames
+
+    c5_frames, c5_truth = _video(C5_FRAMES, C5_SHAPE, C5_DIMERS,
+                                 seed=C5_SEED)
+    c5_cands = _locate_frames(
+        _Stack(c5_frames[:1]), range(1), (LOC_DIAMETER,) * 2,
+        (LOC_SEPARATION // 2,) * 2, None, 64.0,
+        TRACK5_KW["max_features"], "frame", device=device)
+    _stamp("config 5 scene")
+    phase_find(c5_cands[["y", "x"]].to_numpy(dtype=float), device, smi)
+    _stamp("find")
+    phase_link(truth, c5_truth, device, smi)
+    _stamp("link")
+    ktr = phase_track(frames, truth, device, smi)
+    _stamp("track")
+    ktr5, gtr5 = phase_track5(c5_frames, c5_truth, device, smi)
+    _stamp("track5")
     # window_gather and pixel_lm's two modes keep config 4's own counts
     # (main3d: three solves), the shape their entries are timed at; the
     # calibration path's gathers have entries of their own below
@@ -2193,6 +2702,16 @@ def main():
             source=src + "window_gather.cu",
             replaces="clustertracking_tpu/ops/pallas_gather.py:144",
             **entry))
+    # the tracking pipeline: config 2's fits, and config 5's small clusters
+    # in fused_lm_2d and its chains' windows in window_gather
+    for what, entry in (("track, config 2", ktr), ("track5, config 5", ktr5)):
+        kernels.append(dict(name=f"fused_lm_2d [{what}]", route="cuda",
+                            source=src + "fused_lm_2d.cu",
+                            replaces=lm + "1213", **entry))
+    kernels.append(dict(
+        name="window_gather [track5, config 5]", route="cuda",
+        source=src + "window_gather.cu",
+        replaces="clustertracking_tpu/ops/pallas_gather.py:144", **gtr5))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,7 +3,9 @@
 Counterpart of ``clustertracking_tpu/diagnostics.py``.  ``stage`` marks a
 pipeline stage as a ``torch.profiler.record_function`` range (visible in a
 ``torch.profiler`` trace, nearly free without one); ``collect`` gathers
-one ``BatchRecord`` per solver dispatch of ``refine_leastsq``.
+one ``BatchRecord`` per solver dispatch of ``refine_leastsq`` and, from
+``track``, the pipeline loss ledger (per-stage feature counts and stage
+wall clocks).
 
 Usage::
 
@@ -29,7 +31,8 @@ from typing import List, Optional
 logger = logging.getLogger("clustertracking_tpu_torch")
 
 __all__ = ["BatchRecord", "StatsCollector", "collect", "stage",
-           "debug_nans", "nan_debug_active", "record_batch"]
+           "debug_nans", "nan_debug_active", "record_batch",
+           "record_ledger"]
 
 _NAN_DEBUG_ENV = os.environ.get("CT_TPU_DEBUG_NANS", "") not in ("", "0")
 
@@ -76,10 +79,12 @@ class BatchRecord:
 
 
 class StatsCollector:
-    """Accumulates BatchRecords from refine_leastsq dispatches."""
+    """Accumulates BatchRecords from refine_leastsq dispatches, plus the
+    pipeline loss ledger (per-stage feature counts from track())."""
 
     def __init__(self):
         self.batches: List[BatchRecord] = []
+        self.ledger: dict = {}
 
     def add(self, rec: BatchRecord) -> None:
         self.batches.append(rec)
@@ -135,6 +140,23 @@ def record_batch(**kwargs) -> None:
         c.add(rec)
     else:
         logger.debug("fit batch (uncollected): %s", rec)
+
+
+def record_ledger(**counts) -> None:
+    """Internal: accumulate pipeline loss-ledger counters (track()).
+
+    Numbers are summed into the active collector's ``ledger``, so every
+    feature lost between locate and the linked output is attributed to a
+    stage; strings (the resolved link backend) overwrite."""
+    c = _active_collector()
+    if c is None:
+        logger.debug("pipeline ledger (uncollected): %s", counts)
+        return
+    for k, v in counts.items():
+        if isinstance(v, str):
+            c.ledger[k] = v
+        else:
+            c.ledger[k] = c.ledger.get(k, 0) + v
 
 
 @contextlib.contextmanager

@@ -1,11 +1,12 @@
-"""find_clusters — DataFrame API for cluster discovery (host path).
+"""find_clusters — DataFrame API for cluster discovery.
 
 Counterpart of ``clustertracking_tpu/find.py``: groups candidate feature
 coordinates into clusters by transitive <=separation overlap, per frame,
 adding ``cluster`` (int id, consecutive within the DataFrame) and
-``cluster_size`` columns.  The host path (cKDTree + union-find) is ported;
-the device label propagation (``backend='device'``) is not yet.  pandas is
-imported by ``find_clusters`` only.
+``cluster_size`` columns.  Backends: ``'host'`` (cKDTree + union-find) or
+``'device'`` (float64 label propagation, ``ops/find.py``); both give the
+same groupings, and ids are canonicalized to first-appearance order, so
+the outputs match exactly.  pandas is imported by ``find_clusters`` only.
 """
 from __future__ import annotations
 
@@ -19,6 +20,11 @@ if TYPE_CHECKING:
     import pandas as pd
 
 __all__ = ["Clusters", "find_clusters", "host_connected_components"]
+
+# 'auto' routing: frames with at least this many candidates take the
+# device label propagation.  The reference's threshold, kept for parity of
+# routing; chip_smoke.py's [find] prints the card's times against the host.
+_DEVICE_MIN_FEATURES = 100_000
 
 
 class Clusters:
@@ -116,27 +122,39 @@ def _canonicalize(labels: np.ndarray) -> np.ndarray:
     return out
 
 
+def _labels_device(coords: np.ndarray, separation, device) -> np.ndarray:
+    """Root labels of one frame's coordinates by the device label
+    propagation on ``device``."""
+    import torch
+
+    from .ops.find import connected_components
+
+    x = torch.tensor(coords, dtype=torch.float64, device=device)
+    valid = torch.ones(len(coords), dtype=torch.bool, device=device)
+    return connected_components(x, valid, separation).cpu().numpy()
+
+
 def find_clusters(
     f: "pd.DataFrame",
     separation,
     pos_columns: Optional[list] = None,
     t_column: str = "frame",
     backend: str = "host",
+    device=None,
 ) -> "pd.DataFrame":
     """Assign ``cluster`` / ``cluster_size`` columns (per frame).
 
     Clusters are connected components of the "pairwise distance <=
     separation" graph (transitive chains merge); ``separation`` may be
-    scalar or per-axis.  ``backend`` 'host' and 'auto' run the host path;
-    'device' raises ``NotImplementedError`` until the label propagation is
-    ported (ROADMAP queue 1 item 6).
+    scalar or per-axis.  ``backend``: 'host' (cKDTree + union-find),
+    'device' (label propagation on ``device``) or 'auto' (the device path
+    for frames of at least ``_DEVICE_MIN_FEATURES`` candidates, the host
+    for smaller ones).  ``device``: None is 'cuda', and raises
+    ``RuntimeError`` where no CUDA device exists (with 'auto', only once a
+    frame that large comes); pass ``device='cpu'`` to propagate on the
+    host.
     """
-    if backend == "device":
-        raise NotImplementedError(
-            "find_clusters(backend='device') is not ported yet (ROADMAP "
-            "queue 1 item 6)"
-        )
-    if backend not in ("host", "auto"):
+    if backend not in ("host", "auto", "device"):
         raise ValueError(f"Unknown backend {backend!r}")
     if pos_columns is None:
         pos_columns = guess_pos_columns(f)
@@ -154,7 +172,14 @@ def find_clusters(
     cluster_col = np.full(len(f), -1, dtype=np.int64)
     for _, idx in groups:
         coords = f.iloc[idx][pos_columns].to_numpy(dtype=float)
-        labels = host_connected_components(coords, separation)
+        if backend == "device" or (
+                backend == "auto" and len(coords) >= _DEVICE_MIN_FEATURES):
+            from .refine import _resolve_device
+
+            labels = _labels_device(
+                coords, separation, _resolve_device(device, "find_clusters"))
+        else:
+            labels = host_connected_components(coords, separation)
         ids = _canonicalize(labels) + next_id
         cluster_col[idx] = ids
         next_id = ids.max() + 1 if len(ids) else next_id

@@ -30,8 +30,10 @@ cluster of the bucket together:
   step on the whole video's distance with a refit at that distance fixed
   (``_joint_global_dist``), and reports it in ``out.attrs``.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
-(ROADMAP queue 1 item 13).  pandas is imported by the DataFrame entry
+Rows without a 'cluster' column are grouped by ``find_clusters``
+(``backend_find``: 'host', 'auto' or 'device', on the same device).  Not
+ported yet, and refused with ``NotImplementedError``: ``mesh=`` (ROADMAP
+queue 1 item 13).  pandas is imported by the DataFrame entry
 points only.  ``train_leastsq`` (train.py) is exported from here too, as
 in the reference.
 """
@@ -597,7 +599,8 @@ def refine_leastsq(
     f = f.copy()
     if "cluster" not in f.columns:
         f = find_clusters(
-            f, separation, pos_columns, t_column, backend=backend_find
+            f, separation, pos_columns, t_column, backend=backend_find,
+            device=device,
         )
     if t_column not in f.columns:
         f[t_column] = 0

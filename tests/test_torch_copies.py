@@ -2,8 +2,10 @@
 
 Importing any ``clustertracking_tpu`` submodule imports JAX, so the port
 carries copies of the numpy/scipy modules it needs (utils, artificial,
-hostref, the host find path).  Each is held here to its original, bit for
-bit, and the port's import is checked to pull in neither JAX nor pandas.
+hostref, the host find path; the host ``Linker`` and ``motion`` are held
+in tests/test_torch_link.py and tests/test_torch_motion.py).  Each is held
+to its original, bit for bit, and the port's import is checked to pull in
+neither JAX nor pandas.
 """
 import subprocess
 import sys
@@ -152,8 +154,9 @@ def test_find_clusters_matches_reference(separation):
     out = find.find_clusters(f, separation)
     ref = ref_find.find_clusters(f, separation, backend="host")
     pd.testing.assert_frame_equal(out, ref)
-    with pytest.raises(NotImplementedError):
-        find.find_clusters(f, separation, backend="device")
+    # the device label propagation, on the CPU, groups alike
+    out = find.find_clusters(f, separation, backend="device", device="cpu")
+    pd.testing.assert_frame_equal(out, ref)
 
 
 def test_clusters_union_find_copy():

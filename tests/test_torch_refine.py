@@ -387,13 +387,23 @@ def test_spill_profile_of_a_custom_model_takes_numpy():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=object()), "item 13"),
-    (dict(backend_find="device"), "item 6"),
+    # backend_find='device' was refused until the device label propagation
+    # was ported (ROADMAP queue 1 item 6, later item 10); the case keeps its
+    # id and now checks that it groups the rows as the host path does
+    pytest.param(dict(backend_find="device"), None, id="kw1-item 6"),
 ])
 def test_refine_leastsq_refuses_what_is_not_ported(kw, match):
     f, img, base, _ = _dimer_scene()
     base = dict(base)
     base.pop("param_mode")
     base.update(kw)
+    if match is None:
+        out = refine_cpu(f.drop(columns="cluster", errors="ignore"), img,
+                         **base)
+        host = refine_cpu(f.drop(columns="cluster", errors="ignore"), img,
+                          **{**base, "backend_find": "host"})
+        pd.testing.assert_frame_equal(out, host)
+        return
     with pytest.raises(NotImplementedError, match=match):
         refine_cpu(f, img, **base)
 
