@@ -8,7 +8,8 @@ gather (``csrc/window_gather.cu``) then the LM on gathered pixels
 (``csrc/pixel_lm.cu``); every built-in profile, and rigid constraints as
 a pose fitted inside the same kernels.  Around it, in plain torch on the
 same device: candidate location, device cluster finding, the auction
-linkers and the ``track`` pipeline.  The JAX package
+linkers, the frame renderer (``ops.synth``) and the ``track``
+pipeline with its recovery passes.  The JAX package
 ``clustertracking_tpu`` stays beside it as the reference the port is
 held against.
 
@@ -16,7 +17,9 @@ Public API::
 
     track                                  (locate → find_clusters →
                                             refine_leastsq → link over a
-                                            video; checkpoint_dir resumes)
+                                            video; checkpoint_dir resumes;
+                                            recover_passes re-locate the
+                                            residual; transfer_dtype)
     locate, find_clusters, refine_leastsq  (DataFrame in / out; need pandas)
     link, link_df, filter_stubs, Linker    (trajectories: host Hungarian,
                                             device auctions)

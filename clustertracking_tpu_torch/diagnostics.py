@@ -2,8 +2,9 @@
 
 Counterpart of ``clustertracking_tpu/diagnostics.py``.  ``stage`` marks a
 pipeline stage as a ``torch.profiler.record_function`` range (visible in a
-``torch.profiler`` trace, nearly free without one); ``collect`` gathers
-one ``BatchRecord`` per solver dispatch of ``refine_leastsq`` and, from
+``torch.profiler`` trace, nearly free without one); ``trace_to`` records
+such a trace of a block into a directory; ``collect`` gathers one
+``BatchRecord`` per solver dispatch of ``refine_leastsq`` and, from
 ``track``, the pipeline loss ledger (per-stage feature counts and stage
 wall clocks).
 
@@ -14,6 +15,12 @@ Usage::
     with ctt.diagnostics.collect() as stats:
         out = ctt.refine_leastsq(f, reader, diameter=9, device="cuda")
     print(stats.summary())          # dict: clusters, rejects, iters, rate
+    print(stats.summary_by_backend())   # the same per backend tag
+
+    # a torch.profiler trace (TensorBoard's PyTorch profiler, or
+    # chrome://tracing / Perfetto for the JSON file):
+    with ctt.diagnostics.trace_to("/tmp/trace"):
+        ctt.refine_leastsq(...)
 
 The non-finite trap (``debug_nans`` or env ``CT_TPU_DEBUG_NANS=1``) makes
 ``refine_leastsq`` raise ``FloatingPointError`` at the first dispatch
@@ -31,7 +38,7 @@ from typing import List, Optional
 logger = logging.getLogger("clustertracking_tpu_torch")
 
 __all__ = ["BatchRecord", "StatsCollector", "collect", "stage",
-           "debug_nans", "nan_debug_active", "record_batch",
+           "trace_to", "debug_nans", "nan_debug_active", "record_batch",
            "record_ledger"]
 
 _NAN_DEBUG_ENV = os.environ.get("CT_TPU_DEBUG_NANS", "") not in ("", "0")
@@ -116,6 +123,23 @@ class StatsCollector:
             "clusters_per_sec": n / wall if wall > 0 else 0.0,
         }
 
+    def summary_by_backend(self) -> dict:
+        """Per-backend-tag {n_clusters, wall_s, clusters_per_sec}: the
+        kernel routes' rates apart from the plain solves and the serial
+        scipy spill (tags ``cuda-fused``, ``cuda-gathered``, ``cuda-torch``
+        with ``-rigid`` / ``-penalty`` / ``-global``, ``scipy``; ``cpu-``
+        on the host)."""
+        out: dict = {}
+        for b in self.batches:
+            d = out.setdefault(b.backend, {"n_clusters": 0, "wall_s": 0.0})
+            d["n_clusters"] += b.n_clusters
+            d["wall_s"] += b.wall_s
+        for d in out.values():
+            d["clusters_per_sec"] = (
+                d["n_clusters"] / d["wall_s"] if d["wall_s"] > 0 else 0.0
+            )
+        return out
+
 
 def _active_collector() -> Optional[StatsCollector]:
     return getattr(_local, "collector", None)
@@ -166,3 +190,24 @@ def stage(name: str):
 
     with torch.profiler.record_function(name):
         yield
+
+
+@contextlib.contextmanager
+def trace_to(log_dir: str):
+    """Record a ``torch.profiler`` trace of the enclosed block (host ops,
+    the ``stage`` ranges and, where CUDA is available, the device's
+    kernels and copies) into ``log_dir``, as one
+    ``<worker>.<time>.pt.trace.json`` file (TensorBoard's PyTorch
+    profiler reads the directory; the file is Chrome trace JSON).  Yields
+    the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    import torch
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))) \
+            as prof:
+        yield prof

@@ -3,6 +3,7 @@ from .fused_lm import fused_lm_2d, fused_lm_2d_reference, kernel_route
 from .lm import LMResult, lm_solve, lm_solve_global
 from .pixel_lm import pixel_lm, pixel_lm_reference
 from .residual import make_model_fns, window_offsets
+from . import synth  # noqa: F401  (render_frames, frames_from_df)
 from .window_gather import window_gather
 
 __all__ = [
