@@ -142,9 +142,27 @@ each:
               fused_lm_2d and window_gather vs plain on the recovery
               refit's first launches;
 27. trace   — diagnostics.trace_to around one config 2 track call: one
-              trace file holding the stage ranges and the card's kernels.
+              trace file holding the stage ranges and the card's kernels;
+28. mesh    — the multi-device path over a 4-shard mesh on the visible
+              cards in turn (["cuda:0"] * 4 on a one-card host; the line
+              names the distinct cards): (a) config 1 through
+              refine_leastsq(mesh=), every lane bit-equal to [refine] and
+              fused_lm_2d launched on every shard; (b) config 4 the same
+              against [refine3d] (pixel_lm streamed), and entry_3d's
+              bucket through sharded_fit (resident) against its
+              one-device solver; (c) a tie across the shards, config 2's
+              video in one dispatch with the size 'global' and
+              dimer_global(): the tied values identical on every lane,
+              within 1e-4 of one device, two runs bit-equal; (d)
+              link(mesh=) on configs 2 and 5's truth rows (config 5 in
+              one-frame shards): card = CPU particle for particle,
+              trajectories the single scan's (config 2) or on 99.9% of the
+              rows (config 5), the stitch's wall; (e) track(mesh=) on
+              config 2 against one device, both timed in this call, with
+              [track]'s gates; then each kernel of the sharded path
+              against its plain version on its first shard launch.
 
-A [time] line follows each phase (17-27 also print their own seconds).
+A [time] line follows each phase (17-28 also print their own seconds).
 Then one JSON line describing each
 kernel (with its bound: the larger of its FP32 operations over the card's
 peak and its bytes over the memory rate), and last the contract line
@@ -612,6 +630,7 @@ def phase_refine(batch, device, smi):
     check(np.nanmean(cost) < 0.1, "refine_leastsq mean cost")
     check(med < 0.05, f"refine_leastsq median position error {med} px")
     check(fused_lm_2d.launches > before, "refine_leastsq bypassed the kernel")
+    return f, frames, out
 
 
 def _rms(cost, npix):
@@ -1186,7 +1205,7 @@ def phase_refine3d(batch, device, smi):
     check(launches["resident"] + launches["streamed"] > 0,
           "refine_leastsq bypassed pixel_lm")
     check(med < 0.05, f"refine_leastsq 3D median position error {med} px")
-    return launches
+    return batch[:5], f, out
 
 
 def _round_inputs(model, layout, batch, window, radius, device, gathered,
@@ -2052,18 +2071,20 @@ def phase_train(device, smi):
           f"call in the process): learned {learned_n} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     calls = []
-    orig = refine.lm_solve_global
+    orig = refine.lm_solve_global_shards
 
-    def timed(*args, **k):
+    def timed(shards, *args, **k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = orig(*args, **k)
+        res = orig(shards, *args, **k)
         torch.cuda.synchronize()
         calls.append((time.perf_counter() - t0,
-                      int(res.n_iter.max()), tuple(args[2].shape)))
+                      max(int(r.n_iter.max()) for r in res),
+                      (sum(sh.x0.shape[0] for sh in shards),
+                       shards[0].x0.shape[1])))
         return res
 
-    refine.lm_solve_global = timed
+    refine.lm_solve_global_shards = timed
     try:
         torch.cuda.synchronize()
         _reset_counts()
@@ -2074,7 +2095,7 @@ def phase_train(device, smi):
         wall = time.perf_counter() - t0
         n_train = _counts()
     finally:
-        refine.lm_solve_global = orig
+        refine.lm_solve_global_shards = orig
     tags = sorted({b.backend for b in stats.batches})
     per_round = len({b.cluster_size for b in stats.batches})
     rounds = len(stats.batches) // max(per_round, 1)
@@ -3002,6 +3023,448 @@ def _stamp(phase):
           flush=True)
 
 
+MESH_SHARDS = 4        # [mesh]'s shards, on the visible cards in turn
+MESH_PTP = 1e-5        # the tied slot's spread over every lane of every shard
+MESH_TIE_RTOL = 1e-4   # the tied values against one device's
+                       # (tests/test_sharded_api.py's tolerance)
+MESH_COLS = ("y", "x", "signal", "size", "cost", "fit_converged",
+             "fit_n_iter")
+
+
+def _mesh():
+    """MESH_SHARDS shards on the visible cards in turn."""
+    import torch
+
+    from clustertracking_tpu_torch.parallel.sharding import make_mesh
+
+    n = torch.cuda.device_count()
+    return make_mesh([torch.device("cuda", s % n)
+                      for s in range(MESH_SHARDS)])
+
+
+def _bit_equal(a, b, cols):
+    """The columns of ``cols`` equal bit for bit (NaN equal to NaN)."""
+    return (len(a) == len(b) and all(
+        np.array_equal(a[c].to_numpy(), b[c].to_numpy(),
+                       equal_nan=a[c].dtype.kind == "f")
+        for c in cols if c in b.columns))
+
+
+def _tally(acc):
+    """Add the wrappers' counts to ``acc`` and set them to 0."""
+    for k, v in _counts().items():
+        acc[k] = acc.get(k, 0) + v
+    _reset_counts()
+
+
+class _FirstPixel:
+    """Wraps ``refine.pixel_lm`` while a main path runs: keeps the
+    arguments of its first launch in each mode ('resident', 'streamed'),
+    to be replayed against the plain version afterwards."""
+
+    def __enter__(self):
+        from clustertracking_tpu_torch import refine
+        from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
+
+        self.first = {}
+        self.orig = refine.pixel_lm
+
+        def wrapped(*args, **kw):
+            before = pixel_lm.launches_resident
+            res = self.orig(*args, **kw)
+            mode = ("resident" if pixel_lm.launches_resident > before
+                    else "streamed")
+            self.first.setdefault(mode, (args, kw))
+            return res
+
+        refine.pixel_lm = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from clustertracking_tpu_torch import refine
+
+        refine.pixel_lm = self.orig
+
+
+class _ShardLaunches:
+    """Counts the kernels' launches per shard while a sharded main path
+    runs.  It wraps ``refine.split_lanes``, which makes every dispatch's
+    shards, and keeps each shard's frame_idx and params0 blocks; a
+    ``fused_lm_2d`` or ``pixel_lm`` launch belongs to the shard whose
+    params0 block it gets, a ``window_gather`` launch (through the
+    wrapper's ``_launch``) to the shard whose frame_idx block it gets.
+    ``shards`` holds one count dict per shard of every dispatch."""
+
+    KINDS = ("fused_lm_2d", "window_gather", "pixel_lm")
+
+    def __enter__(self):
+        from clustertracking_tpu_torch import refine
+        from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
+        from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
+
+        wg = _window_gather_module()
+        self.blocks, self.shards = [], []
+        self.orig = (refine.split_lanes, refine.fused_lm_2d,
+                     refine.pixel_lm, wg._launch)
+        split, fused, pixel, launch = self.orig
+
+        def owner(t, i):
+            for (fidx, params0), n in zip(self.blocks, self.shards):
+                if t is (fidx, params0)[i]:
+                    return n
+            return {}
+
+        def add(kind, t, i, n):
+            d = owner(t, i)
+            if d:
+                d[kind] += n
+
+        def split_w(*args, **kw):
+            out = split(*args, **kw)
+            for a in out:   # (frames, frame_idx, params0, ...)
+                self.blocks.append((a[1], a[2]))
+                self.shards.append(dict.fromkeys(self.KINDS, 0))
+            return out
+
+        def fused_w(*args, **kw):
+            before = fused_lm_2d.launches
+            res = fused(*args, **kw)
+            add("fused_lm_2d", args[1], 1, fused_lm_2d.launches - before)
+            return res
+
+        def pixel_w(*args, **kw):
+            before = pixel_lm.launches_resident + pixel_lm.launches_streamed
+            res = pixel(*args, **kw)
+            add("pixel_lm", args[1], 1, pixel_lm.launches_resident
+                + pixel_lm.launches_streamed - before)
+            return res
+
+        def launch_w(frames, frame_idx, *rest):
+            rc = launch(frames, frame_idx, *rest)
+            add("window_gather", frame_idx, 0, int(rc == 0))
+            return rc
+
+        refine.split_lanes, refine.fused_lm_2d = split_w, fused_w
+        refine.pixel_lm, wg._launch = pixel_w, launch_w
+        return self
+
+    def __exit__(self, *exc):
+        from clustertracking_tpu_torch import refine
+
+        (refine.split_lanes, refine.fused_lm_2d, refine.pixel_lm,
+         _window_gather_module()._launch) = self.orig
+
+    def least(self, kind):
+        """The fewest launches of ``kind`` on any shard of any dispatch
+        (0 where no dispatch was split)."""
+        return min((n[kind] for n in self.shards), default=0)
+
+
+def _pixel_replay(first, mode, what, smi):
+    """pixel_lm in ``mode`` vs its plain version on a main path's first
+    launch in that mode (``_FirstPixel``): agreement, ms, bound.  Returns
+    the kernels-line entry without its launches."""
+    import torch
+
+    check(mode in first.first, f"{what}: no {mode} pixel_lm launch to "
+          "replay")
+    args, kw = first.first[mode]
+    kw = {k: v for k, v in kw.items() if k != "streaming"}
+    layout = kw["layout"]
+    pos = sorted({int(s) for p in layout.pos_param_idx
+                  for s in layout.slot_idx[:, p]})
+    call, plain = _launcher(mode), _plain(mode)
+    res_p, plain_ms = _timed(lambda: plain(args, kw))
+    res_k = call(args, kw)
+    torch.cuda.synchronize()
+    a = _agreement(res_k, res_p, pos)
+    bound = _lm_bound(res_k, args, kw)
+    ms = _cuda_ms(lambda: call(args, kw), 5)
+    print(f"[{what}] {smi}: pixel_lm {mode} vs plain on the first shard's "
+          f"first launch (B={len(args[0])}, window {kw['window_shape']}): "
+          f"{_fmt(a)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; time over bound "
+          f"{ms / bound['bound_ms']:.1f}x)", flush=True)
+    return dict(max_abs_err=a["pos"], ms=ms, plain_ms=plain_ms, **bound,
+                library_ms=None)
+
+
+def _walled(fn):
+    """(result, seconds) of ``fn`` with the card synchronized around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_mesh(c1, c4, frames, truth, raw, c5_truth, device, smi):
+    """The multi-device path over MESH_SHARDS shards on the visible cards
+    in turn: config 1 and config 4 through refine_leastsq(mesh=), and
+    config 4's bucket through sharded_fit, against one device (bit for
+    bit); a tie across the shards on config 2's video ('global' size and
+    dimer_global()); sharded linking of configs 2 and 5; track(mesh=) on
+    config 2.  Returns the kernels-line entries of the kernels the sharded
+    path launches (fused_lm_2d, window_gather, pixel_lm in both modes),
+    their launches counted over the phase's sharded runs."""
+    import torch
+
+    from clustertracking_tpu_torch import (
+        diagnostics, dimer_global, find_clusters, link, refine_leastsq,
+        track)
+    from clustertracking_tpu_torch.entry import (
+        MODES_3D, RADIUS_3D, WINDOW_3D, entry_3d)
+    from clustertracking_tpu_torch.parallel.linking import link_sharded
+    from clustertracking_tpu_torch.parallel.sharding import (
+        make_mesh, sharded_fit)
+
+    t_phase = time.perf_counter()
+    mesh = _mesh()
+    print(f"[mesh] {smi}: {mesh.size} shards on {len(mesh.distinct)} "
+          f"distinct card(s) {[str(d) for d in mesh.distinct]}", flush=True)
+    counts = {}
+
+    def sharded(fn, *wrappers):
+        """A sharded main-path run, its launches tallied."""
+        _reset_counts()
+        with diagnostics.collect() as stats:
+            out, wall = _walled(fn)
+        _tally(counts)
+        tags = {b.backend for b in stats.batches}
+        check(tags and all(t.endswith("-sharded") for t in tags),
+              f"untagged sharded dispatches {tags}")
+        return out, wall, stats
+
+    # (a) config 1 through refine_leastsq, four shards against one device
+    f1, frames1, out1 = c1
+    kw1 = dict(diameter=9, separation=6.0)
+    single, wall_1 = _walled(lambda: refine_leastsq(f1, frames1,
+                                                    device=device, **kw1))
+    with _FirstLaunch(rigid=False) as first_fused, \
+            _ShardLaunches() as per_a:
+        out_m, wall_m, stats = sharded(
+            lambda: refine_leastsq(f1, frames1, mesh=mesh, **kw1))
+    tags = sorted({b.backend for b in stats.batches})
+    n_fused = first_fused.launches[False]
+    per_shard = [n["fused_lm_2d"] for n in per_a.shards]
+    print(f"[mesh] {smi}: (a) config 1, refine_leastsq on {len(f1)} rows: "
+          f"{wall_m:.3f} s sharded, {wall_1:.3f} s on one device "
+          f"({wall_m / wall_1:.2f}x), {len(stats.batches)} dispatches {tags},"
+          f" {n_fused} fused_lm_2d launches, by shard of each dispatch "
+          f"{per_shard}; every lane bit-equal to [refine]"
+          f" and to the one-device run: "
+          f"{_bit_equal(out_m, out1, MESH_COLS)}, "
+          f"{_bit_equal(out_m, single, MESH_COLS)}", flush=True)
+    check(_bit_equal(out_m, out1, MESH_COLS)
+          and _bit_equal(out_m, single, MESH_COLS),
+          "config 1 sharded differs from one device")
+    check(tags == ["cuda-fused-sharded"], f"config 1 sharded took {tags}")
+    check(len(per_shard) == mesh.size * len(stats.batches)
+          and per_a.least("fused_lm_2d") >= 1,
+          f"a shard launched no fused_lm_2d: {per_shard}")
+
+    # (b) config 4: refine_leastsq on [refine3d]'s scene (its 7x9x9
+    # diameter: occupancy picks pixel_lm streamed), then sharded_fit with
+    # entry_3d's bucket (9x13x13 windows: resident), window_gather then
+    # pixel_lm on every shard
+    batch4, f4, out4 = c4
+    kw4 = dict(diameter=(7, 9, 9), separation=5.0, param_mode={
+        "size_z": "var", "size_y": "var", "size_x": "var"})
+    single4, wall_4 = _walled(lambda: refine_leastsq(f4, batch4[0],
+                                                     device=device, **kw4))
+    solve, args = entry_3d(device, batch=batch4)
+    one_fit, wall_f1 = _walled(lambda: solve(*args))
+    fit, _ = sharded_fit(mesh, "gauss", 3, False, 2, WINDOW_3D, RADIUS_3D,
+                         param_mode=dict(MODES_3D))
+    before = dict(counts)
+    with _FirstPixel() as first_pixel:
+        with _ShardLaunches() as per_4:
+            out_m4, wall_m4, stats4 = sharded(
+                lambda: refine_leastsq(f4, batch4[0], mesh=mesh, **kw4))
+        n4 = {k: counts[k] - before.get(k, 0) for k in counts}
+        _reset_counts()
+        with _ShardLaunches() as per_f:
+            m_fit, wall_fm = _walled(lambda: fit(*args))
+        nf = _counts()
+        _tally(counts)
+    tags4 = sorted({b.backend for b in stats4.batches})
+    cols4 = ("z", "y", "x", "signal", "size_z", "size_y", "size_x", "cost",
+             "fit_converged", "fit_n_iter")
+    fit_equal = all(torch.equal(u.to(v.device), v)
+                    for u, v in zip(m_fit[:4], one_fit[:4]))
+    print(f"[mesh] {smi}: (b) config 4, refine_leastsq on {len(f4)} rows: "
+          f"{wall_m4:.3f} s sharded, {wall_4:.3f} s on one device "
+          f"({wall_m4 / wall_4:.2f}x), {tags4}, launches {n4} (by shard of "
+          f"each dispatch {per_4.shards}); every lane "
+          f"bit-equal to [refine3d] and to the one-device run: "
+          f"{_bit_equal(out_m4, out4, cols4)}, "
+          f"{_bit_equal(out_m4, single4, cols4)}; sharded_fit with "
+          f"entry_3d's bucket (B={len(batch4[1])}, {WINDOW_3D}): "
+          f"{wall_fm * 1e3:.2f} ms sharded, {wall_f1 * 1e3:.2f} ms on one "
+          f"device, launches {nf} (by shard {per_f.shards}), params, rms, "
+          f"converged and n_iter "
+          f"bit-equal: {fit_equal}", flush=True)
+    check(_bit_equal(out_m4, out4, cols4)
+          and _bit_equal(out_m4, single4, cols4),
+          "config 4 sharded differs from one device")
+    check(fit_equal, "sharded_fit differs from entry_3d's solver")
+    check(tags4 == ["cuda-gathered-sharded"], f"config 4 sharded took {tags4}")
+    for per in (per_4, per_f):
+        check(len(per.shards) >= mesh.size
+              and per.least("window_gather") >= 1
+              and per.least("pixel_lm") >= 1,
+              f"a config 4 shard launched no window_gather or pixel_lm: "
+              f"{per.shards}")
+    check(set(first_pixel.first) == {"resident", "streamed"},
+          f"config 4's sharded runs took pixel_lm {sorted(first_pixel.first)}")
+
+    # (c) the tie across the shards: config 2's video in one dispatch, the
+    # size 'global' and one bond length for the video.  One refit round:
+    # each bucket's tie is then one joint solve over every lane (a later
+    # round re-ties only the lanes that moved, in both packages)
+    fc = find_clusters(raw.copy(), LOC_SEPARATION)
+    kwc = dict(diameter=LOC_DIAMETER, separation=LOC_SEPARATION,
+               constraints=dimer_global(ndim=2), param_val={"size": LOC_SIZE},
+               param_mode={"size": "global"}, frames_per_dispatch=LOC_FRAMES,
+               max_iter=1)
+    tie_1, wall_t1 = _walled(lambda: refine_leastsq(fc, frames, device=device,
+                                                    **kwc))
+    with _FirstGather() as first_gather, _ShardLaunches() as per_t:
+        tie_m, wall_tm, stats_t = sharded(
+            lambda: refine_leastsq(fc, frames, mesh=mesh, **kwc))
+    tie_m2, _, _ = sharded(lambda: refine_leastsq(fc, frames, mesh=mesh,
+                                                  **kwc))
+    same_run = _bit_equal(tie_m, tie_m2, list(tie_m.columns)) and \
+        tie_m.attrs == tie_m2.attrs
+    spread, rel = {}, {}
+    for n, g in tie_m[tie_m["cost"].notna()].groupby("cluster_size"):
+        g1 = tie_1[(tie_1["cluster_size"] == n) & tie_1["cost"].notna()]
+        spread[int(n)] = float(np.ptp(g["size"].to_numpy()))
+        rel[int(n)] = float(abs(g["size"].mean() / g1["size"].mean() - 1))
+    d_m, d_1 = tie_m.attrs["global_dist"], tie_1.attrs["global_dist"]
+    rel_d = abs(d_m / d_1 - 1)
+    tags_t = sorted({b.backend for b in stats_t.batches})
+    print(f"[mesh] {smi}: (c) the tie, config 2's {LOC_FRAMES} frames in one "
+          f"dispatch ({len(fc)} candidates): {wall_tm:.3f} s sharded, "
+          f"{wall_t1:.3f} s on one device ({wall_tm / wall_t1:.2f}x), "
+          f"{tags_t}; tied size's spread by cluster size {spread} (tol "
+          f"{MESH_PTP:g}), relative to one device {rel}; global_dist "
+          f"{d_m:.6f} px sharded, {d_1:.6f} on one device (rel {rel_d:.2e}, "
+          f"tol {MESH_TIE_RTOL:g}); two sharded runs bit-equal: {same_run};"
+          f" window_gather by shard of each dispatch "
+          f"{[n['window_gather'] for n in per_t.shards]}", flush=True)
+    check(spread and max(spread.values()) < MESH_PTP,
+          f"the tied size spreads {spread}")
+    check(max(rel.values()) < MESH_TIE_RTOL, f"tied size vs one device {rel}")
+    check(rel_d < MESH_TIE_RTOL, f"global_dist vs one device {rel_d}")
+    check(same_run, "two sharded runs of the tie differ")
+    check("cuda-torch-rigid-global-sharded" in tags_t,
+          f"the tie took {tags_t}")
+    check(len(per_t.shards) >= mesh.size
+          and per_t.least("window_gather") >= 1,
+          f"a shard of the tie launched no window_gather: {per_t.shards}")
+
+    # (d) sharded linking of the truth rows
+    cpu_mesh = make_mesh(["cpu"] * MESH_SHARDS)
+    for name, tr, memory, backend in (("config 2", truth, 6, "device"),
+                                      ("config 5", c5_truth, 2,
+                                       "device-binned")):
+        fl = tr[["frame", "y", "x"]].reset_index(drop=True)
+        one, one_s = _walled(lambda: link(fl, 3.0, memory=memory,
+                                          backend=backend, device=device))
+        card, card_s = _walled(lambda: link(fl, 3.0, memory=memory,
+                                            mesh=mesh))
+        st = dict(link_sharded.last_stats)
+        cpu = link(fl, 3.0, memory=memory, mesh=cpu_mesh)
+        check(card.attrs["link_backend"] == f"sharded:{backend}",
+              f"{name}: sharded link took {card.attrs['link_backend']}")
+        check(np.array_equal(card["particle"].to_numpy(),
+                             cpu["particle"].to_numpy()),
+              f"{name}: sharded link on the card and on the CPU differ")
+        p1, pm = one["particle"].to_numpy(), card["particle"].to_numpy()
+        same = _rows_in_identical_trajectories(pm, p1)
+        T = int(fl["frame"].nunique())
+        print(f"[mesh] {smi}: (d) {name} truth, {T} frames x "
+              f"{len(fl) // T} features, memory {memory}: link(mesh=) "
+              f"{card_s * 1e3:.2f} ms ({st['shards']} shards of "
+              f"{-(-T // st['shards'])} frames; auctions "
+              f"{st['link_s'] * 1e3:.2f} ms, stitch {st['stitch_s'] * 1e3:.2f}"
+              f" ms), single scan {one_s * 1e3:.2f} ms; equal to the CPU's "
+              f"particle for particle; {same} of {len(fl)} rows in "
+              f"trajectories identical to the single scan's; trajectories "
+              f"{len(np.unique(pm))} sharded, {len(np.unique(p1))} single",
+              flush=True)
+        if backend == "device":
+            check(np.array_equal(_partition(pm), _partition(p1)),
+                  f"{name}: sharded trajectories differ from the single "
+                  "scan's")
+        else:
+            check(same >= LINK_AGREE * len(fl),
+                  f"{name}: {len(fl) - same} rows in trajectories that "
+                  "differ from the single scan's")
+
+    # (e) track(mesh=) on config 2 against one device, both warm
+    reader = _Stack(frames)
+    track(reader, mesh=mesh, **TRACK_KW)      # untimed: first-use costs
+    with diagnostics.collect() as st1:
+        tr1, w1 = _walled(lambda: track(reader, device=device, **TRACK_KW))
+    trm, wm, stm = sharded(lambda: track(reader, mesh=mesh, **TRACK_KW))
+    err, recall, _ = _track_accuracy(trm, truth)
+    T = len(frames)
+    same_rows = _bit_equal(trm, tr1, ("frame", "y", "x", "signal", "cost"))
+    same_traj = _rows_in_identical_trajectories(
+        trm["particle"].to_numpy(), tr1["particle"].to_numpy())
+    # the stitch is the reference's, not the single scan: at a cut it
+    # pairs only tracks that end before it with tracks that start after
+    # it, so fitted rows with gaps can pair otherwise than the single scan
+    # (tests/test_torch_parallel_link.py::
+    # test_link_mesh_rows_with_gaps_pair_as_the_reference holds both
+    # packages' link(mesh=) equal on such rows, and unequal to the single
+    # scan; scripts/sharded_link_parity.py does so on these very rows);
+    # here the card's sharded link is held to the CPU's on the same rows
+    cpu = link(trm[["frame", "y", "x"]], TRACK_KW["search_range"],
+               memory=TRACK_KW["memory"], mesh=cpu_mesh)
+    cpu_same = np.array_equal(cpu["particle"].to_numpy(),
+                              trm["particle"].to_numpy())
+    print(f"[mesh] {smi}: (e) track(mesh=) on config 2: {T / wm:.2f} "
+          f"frames/s ({wm:.3f} s), one device {T / w1:.2f} frames/s "
+          f"({w1:.3f} s); ledger sharded: {_ledger(stm)}; one device: "
+          f"{_ledger(st1)}; {len(trm)} rows bit-equal to one device's: "
+          f"{same_rows}, {same_traj} of them in trajectories identical to "
+          f"one device's ({trm['particle'].nunique()} trajectories sharded, "
+          f"{tr1['particle'].nunique()} on one device; the sharded link "
+          f"equal to the CPU's on the same rows: {cpu_same}); median |pos - "
+          f"truth| {err:.4f} px, recall within 1 px {recall:.4f}",
+          flush=True)
+    check(trm.attrs["link_backend"] == "sharded:device",
+          f"track(mesh=) linked with {trm.attrs['link_backend']}")
+    check(same_rows, "track(mesh=)'s rows differ from one device's")
+    check(cpu_same, "track(mesh=)'s sharded link differs from the CPU's")
+    check(err < TRACK_ERR, f"track(mesh=) median position error {err} px")
+    check(recall >= TRACK_RECALL, f"track(mesh=) recall {recall}")
+
+    # (f) each kernel of the sharded path against its plain version, on
+    # its first shard launch
+    check(all(counts[k] > 0 for k in ("fused_lm_2d", "window_gather",
+                                      "resident", "streamed")),
+          f"a kernel of the sharded path was not launched: {counts}")
+    print(f"[mesh] {smi}: launches over the phase's sharded runs {counts}",
+          flush=True)
+    entries = dict(
+        fused=dict(launches=counts["fused_lm_2d"],
+                   **_replay(first_fused, "mesh", smi)),
+        gather=dict(launches=counts["window_gather"],
+                    **_gather_replay(first_gather, "mesh", smi)),
+        **{mode: dict(launches=counts[mode],
+                      **_pixel_replay(first_pixel, mode, "mesh", smi))
+           for mode in ("resident", "streamed")})
+    print(f"[mesh] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
 def main():
     smi = phase_device()
     _stamp("device")
@@ -3023,7 +3486,7 @@ def main():
     _stamp("rates")
     phase_profile(batch, device, smi)
     _stamp("profile")
-    phase_refine(batch, device, smi)
+    c1 = phase_refine(batch, device, smi)
     _stamp("refine")
     del batch
     batch3d = example_batch_3d(B=B_3D, with_truth=True)
@@ -3040,7 +3503,7 @@ def main():
     torch.cuda.empty_cache()
     phase_stream2d(device, smi)
     _stamp("stream2d")
-    phase_refine3d(batch3d, device, smi)
+    c4 = phase_refine3d(batch3d, device, smi)
     _stamp("refine3d")
     del batch3d
     kp, np_ = phase_profiles(device, smi)
@@ -3059,7 +3522,6 @@ def main():
     _stamp("train")
     kg, gg = phase_global(frames, truth, raw, device, smi)
     _stamp("global")
-    del raw
     from clustertracking_tpu_torch.pipeline import _locate_frames
 
     c5_frames, c5_truth = _video(C5_FRAMES, C5_SHAPE, C5_DIMERS,
@@ -3085,6 +3547,9 @@ def main():
     _stamp("track5r")
     phase_trace(frames, device, smi)
     _stamp("trace")
+    km = phase_mesh(c1, c4, frames, truth, raw, c5_truth, device, smi)
+    _stamp("mesh")
+    del c1, c4, raw
     # window_gather and pixel_lm's two modes keep config 4's own counts
     # (main3d: three solves), the shape their entries are timed at; the
     # calibration path's gathers have entries of their own below
@@ -3167,6 +3632,19 @@ def main():
         name="window_gather [track5r, config 5 recovery refit]",
         route="cuda", source=src + "window_gather.cu",
         replaces="clustertracking_tpu/ops/pallas_gather.py:144", **gtr5r))
+    # the mesh: the first shard's launch of each kernel the sharded path
+    # runs, launches counted over the phase's sharded runs
+    for name, route, file, line in (
+            ("fused_lm_2d [mesh, config 1 shard]", "fused",
+             "fused_lm_2d.cu", lm + "1213"),
+            ("window_gather [mesh, tie]", "gather", "window_gather.cu",
+             "clustertracking_tpu/ops/pallas_gather.py:144"),
+            ("pixel_lm (resident) [mesh, config 4 shard]", "resident",
+             "pixel_lm.cu", lm + "1143"),
+            ("pixel_lm (streamed) [mesh, config 4 refine3d shard]",
+             "streamed", "pixel_lm.cu", lm + "1161")):
+        kernels.append(dict(name=name, route="cuda", source=src + file,
+                            replaces=line, **km[route]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

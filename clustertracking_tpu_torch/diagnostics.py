@@ -127,8 +127,8 @@ class StatsCollector:
         """Per-backend-tag {n_clusters, wall_s, clusters_per_sec}: the
         kernel routes' rates apart from the plain solves and the serial
         scipy spill (tags ``cuda-fused``, ``cuda-gathered``, ``cuda-torch``
-        with ``-rigid`` / ``-penalty`` / ``-global``, ``scipy``; ``cpu-``
-        on the host)."""
+        with ``-rigid`` / ``-penalty`` / ``-global``, and ``-sharded`` for
+        a dispatch split over a mesh, ``scipy``; ``cpu-`` on the host)."""
         out: dict = {}
         for b in self.batches:
             d = out.setdefault(b.backend, {"n_clusters": 0, "wall_s": 0.0})

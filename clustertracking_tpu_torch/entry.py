@@ -14,6 +14,10 @@ example arguments on ``device``.  ``example_batch`` is a numpy copy of
 ``entry_rigid(config, device)`` is the same for the rigid cells: config
 3's 2D dimers and trimers, config 3b's 3D dimers and config 3c's 3D
 tetramers (``RIGID_CONFIGS``); ``example_batch_rigid`` draws them.
+
+``dryrun_multichip(n_devices, device=None)`` is the counterpart of
+``__graft_entry__.dryrun_multichip``: the public API over an
+``n_devices``-shard mesh.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from .refine import _bucket_solver
 
 __all__ = ["example_batch", "example_batch_3d", "example_batch_rigid",
            "entry", "entry_3d", "entry_rigid", "WINDOW", "RADIUS",
-           "WINDOW_3D", "RADIUS_3D", "MODES_3D", "RIGID_CONFIGS"]
+           "WINDOW_3D", "RADIUS_3D", "MODES_3D", "RIGID_CONFIGS",
+           "dryrun_multichip"]
 
 WINDOW = (13, 13)
 RADIUS = (4.5, 4.5)
@@ -239,3 +244,87 @@ def entry_3d(device, batch=None, lm_backend="auto", gather_backend="auto",
     state = from_reference(*batch[:5], device=device)
     return solver, (state.frames, state.frame_idx, state.params0,
                     state.pose0, state.valid)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The public API over an ``n_devices``-shard mesh, on tiny shapes.
+
+    The shards go on the visible CUDA cards in turn (four shards on one
+    card share it), or all on the host with ``device="cpu"``; without a
+    card and without ``device="cpu"`` this raises ``RuntimeError``.  It
+    drives ``refine_leastsq(mesh=...)`` on a 2-frame dimer video with the
+    size tied across every lane ('global'; the tie all-reduces across the
+    shards) and checks that the tied size is identical on every accepted
+    fit (ptp < 1e-5), then ``link(mesh=...)`` over ``4 * n_devices``
+    frames of 6 walkers, frame-sharded with stitched cuts, and checks 6
+    trajectories.  Prints one line and returns its numbers."""
+    import pandas as pd
+    import torch
+
+    from .link import link
+    from .parallel.sharding import make_mesh
+    from .refine import refine_leastsq
+
+    if device is not None and torch.device(device).type == "cpu":
+        devices = ["cpu"] * n_devices
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "dryrun_multichip: no CUDA device is available; pass "
+                "device='cpu' to run the shards on the host")
+        count = torch.cuda.device_count()
+        devices = [torch.device("cuda", i % count) for i in range(n_devices)]
+    mesh = make_mesh(devices)
+
+    # a tiny dimer video through the public refine entry point, with the
+    # size shared across lanes on every shard
+    rng = np.random.default_rng(0)
+    T = 2
+    frames = np.zeros((T, 48, 48), np.float32)
+    rows = []
+    for t in range(T):
+        for c in [(14.0, 14.0), (14.0, 34.0), (34.0, 24.0)]:
+            true = artificial.draw_cluster(
+                frames[t], np.asarray(c), size=2.5, separation=5.0,
+                n=2, signal=150.0, angle=rng.uniform(0, np.pi),
+            )
+            for p in true + rng.uniform(-0.3, 0.3, true.shape):
+                rows.append({"frame": t, "y": p[0], "x": p[1],
+                             "signal": 150.0})
+    out = refine_leastsq(
+        pd.DataFrame(rows), frames, diameter=9, separation=6.0,
+        param_mode={"size": "global"}, param_val={"size": 2.5},
+        mesh=mesh, lm_max_iter=8, max_iter=2,
+    )
+    ok = out["cost"].notna()
+    if not ok.any():
+        raise RuntimeError("dryrun_multichip: every sharded fit rejected")
+    sizes = out.loc[ok, "size"].to_numpy()
+    ptp = float(np.ptp(sizes))
+    if ptp >= 1e-5:
+        raise RuntimeError(f"dryrun_multichip: the global size is not tied "
+                           f"across shards (ptp {ptp})")
+
+    # frame-sharded linking with stitched cuts through the public link
+    rng = np.random.default_rng(1)
+    Tl, N = 4 * n_devices, 6
+    pos = np.cumsum(
+        np.concatenate([rng.uniform(10, 90, (1, N, 2)),
+                        rng.normal(0, 0.3, (Tl - 1, N, 2))]),
+        axis=0,
+    )
+    fl = pd.DataFrame({"frame": np.repeat(np.arange(Tl), N),
+                       "y": pos[:, :, 0].ravel(), "x": pos[:, :, 1].ravel()})
+    n_traj = int(link(fl, 3.0, mesh=mesh)["particle"].nunique())
+    if n_traj != N:
+        raise RuntimeError(f"dryrun_multichip: sharded link broke "
+                           f"trajectories: {n_traj} != {N}")
+    result = dict(shards=mesh.size, distinct_devices=len(mesh.distinct),
+                  fits=int(ok.sum()), size_ptp=ptp, trajectories=n_traj,
+                  frames=Tl)
+    print(f"dryrun_multichip OK: {mesh.size} shards on "
+          f"{len(mesh.distinct)} distinct device(s) "
+          f"{[str(d) for d in mesh.distinct]} via the public API, "
+          f"{result['fits']} fits, global size ptp {ptp:.2e}, sharded link "
+          f"{n_traj} trajectories over {Tl} frames", flush=True)
+    return result

@@ -53,24 +53,43 @@ def link(
 
     ``device`` (device backends only): None is 'cuda', and raises
     ``RuntimeError`` where no CUDA device exists; pass ``device='cpu'`` to
-    run the auction on the host.  The backend run is recorded in
-    ``out.attrs['link_backend']``.  ``mesh=`` (frame-sharded linking)
-    raises ``NotImplementedError``.
+    run the auction on the host.
+
+    ``mesh`` (a ``parallel.sharding.make_mesh`` mesh): the video splits
+    into one contiguous frame range per shard, each linked on its shard's
+    device, and trajectories stitch across the cuts
+    (``parallel/linking.py::link_sharded``).  ``backend`` then picks the
+    in-shard auction ('auto', the default under a mesh, 'device' or
+    'device-binned'; 'host' raises ``ValueError``); ``particle`` is
+    int64.  Any other ``mesh`` raises ``TypeError``.
+
+    The backend run is recorded in ``out.attrs['link_backend']``
+    (``'sharded:<backend>'`` under a mesh).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "link(mesh=...) (frame-sharded linking) is not ported yet "
-            "(ROADMAP queue 1 item 13)"
-        )
     if pos_columns is None:
         pos_columns = guess_pos_columns(f)
+    if mesh is not None:
+        from .refine import _mesh_device
+
+        _mesh_device(mesh, None, "link")
     if backend is None:
-        backend = "host"
+        backend = "auto" if mesh is not None else "host"
     if backend == "auto":
         kmax = int(f.groupby(t_column).size().max()) if len(f) else 0
         # dense frames take the BINNED auction: the dense [K, K·(memory+2)]
         # matrix grows with K², the binned [K, 3^D·cell_cap] graph with K
         backend = "device" if kmax <= 2048 else "device-binned"
+    if mesh is not None:
+        # the host Linker is sequential in time: it has no sharded form
+        if backend not in ("device", "device-binned"):
+            raise ValueError(
+                f"backend={backend!r} cannot run under mesh=; use "
+                "'auto', 'device' or 'device-binned'"
+            )
+        out = _link_sharded_df(f, search_range, memory, pos_columns,
+                               t_column, mesh, backend)
+        out.attrs["link_backend"] = f"sharded:{backend}"
+        return out
     if backend in ("device", "device-binned"):
         from .refine import _resolve_device
 
@@ -278,6 +297,24 @@ def _link_device(f, search_range, memory, pos_columns, t_column, device,
         particles = link_on_device(pos_t, valid_t, float(search_range),
                                    int(memory))
     f["particle"] = particles.cpu().numpy().reshape(-1)[slots]
+    return f
+
+
+def _link_sharded_df(f, search_range, memory, pos_columns, t_column, mesh,
+                     backend):
+    """Frame-sharded linking over ``mesh`` (parallel/linking.py)."""
+    from .parallel.linking import link_sharded
+
+    f = f.copy()
+    if len(f) == 0:
+        f["particle"] = np.array([], dtype=np.int64)
+        return f
+    positions, valid, slots = _pad_frames(f, pos_columns, t_column)
+    parts = link_sharded(
+        positions, valid, float(search_range), int(memory), mesh=mesh,
+        backend=backend,
+    ).reshape(-1)
+    f["particle"] = parts[slots]
     return f
 
 

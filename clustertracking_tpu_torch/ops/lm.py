@@ -20,7 +20,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["LMResult", "damped_solve", "lm_solve", "lm_solve_global"]
+from .collectives import all_reduce
+
+__all__ = ["GlobalShard", "LMResult", "damped_solve", "lm_solve",
+           "lm_solve_global", "lm_solve_global_shards"]
 
 
 class LMResult(NamedTuple):
@@ -222,89 +225,175 @@ def lm_solve_global(
     1e-6·|x|), and ``converged`` is the joint flag or'ed with "stopped
     moving before the loop ended"; ``cost`` is the lane's own sum of
     squares at the solution (one more ``residual_fn`` evaluation).
+
+    The body is ``lm_solve_global_shards`` on one shard.
     """
-    B, V = x0.shape
-    dtype, device = x0.dtype, x0.device
-    gmask = torch.as_tensor(list(map(bool, global_slots)), dtype=torch.bool,
-                            device=device)
-    if valid is None:
-        valid = torch.ones((B,), dtype=torch.bool, device=device)
-    w = valid.to(dtype)
-    nvalid = torch.clamp(torch.sum(w), min=1.0)
-    share2d = gmask[None, :, None] & gmask[None, None, :]
-    local = (~gmask)[None, :].to(dtype)
+    shard = GlobalShard(residual_fn, residual_jac_fn, x0, args, lower, upper,
+                        valid)
+    return lm_solve_global_shards(
+        [shard], global_slots, max_iter=max_iter, ftol=ftol, xtol=xtol,
+        lam0=lam0, lam_up=lam_up, lam_down=lam_down, lam_max=lam_max)[0]
 
-    def tie(x):
-        mean = torch.sum(x * w[:, None], dim=0) / nvalid
-        x = torch.where(gmask[None, :], mean[None, :], x)
-        if lower is not None:
-            x = torch.maximum(x, lower)
-        if upper is not None:
-            x = torch.minimum(x, upper)
-        return x
 
-    def cost_grad_hess(x):
-        """ONE sweep -> (joint cost, tied g, tied H)."""
-        r, J = residual_jac_fn(x, *args)
-        r = r * w.reshape((B,) + (1,) * (r.dim() - 1))
-        J = J * w.reshape((B,) + (1,) * (J.dim() - 1))
-        cost = torch.sum(r * r)  # w is 0/1, so w² = w
-        g = torch.einsum("bvn,bn->bv", J, r)
-        H = torch.einsum("bun,bvn->buv", J, J)
-        g_shared = torch.sum(g * gmask[None, :], dim=0)
-        g = torch.where(gmask[None, :], g_shared[None, :] / nvalid, g)
-        H_shared = torch.sum(H * share2d, dim=0)
-        H = torch.where(share2d, H_shared[None] / nvalid, H)
-        return cost, g, H
+class GlobalShard(NamedTuple):
+    """One shard's lanes of a tied solve: its residual functions, x0
+    [B_s, V], args, bounds ([V] or [B_s, V], or None) and valid [B_s]
+    (None: all), on the shard's device."""
+    residual_fn: Callable
+    residual_jac_fn: Callable
+    x0: torch.Tensor
+    args: Tuple = ()
+    lower: Optional[torch.Tensor] = None
+    upper: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
 
-    x = tie(x0)
+
+def lm_solve_global_shards(
+    shards,
+    global_slots,
+    *,
+    max_iter: int = 50,
+    ftol: float = 1.49e-8,
+    xtol: float = 1.49e-8,
+    lam0: float = 1e-3,
+    lam_up: float = 4.0,
+    lam_down: float = 0.25,
+    lam_max: float = 1e10,
+) -> list:
+    """``lm_solve_global`` over lanes split into shards (``GlobalShard``),
+    each on its own device: one joint solve, a list of per-shard
+    ``LMResult``.
+
+    Every sum over lanes is a per-shard partial sum passed through
+    ``all_reduce`` (``ops/collectives.py``: summed in shard order, the
+    total sent back to every shard): the tie's weighted mean and
+    ``nvalid``; the joint cost, ``g_shared`` and ``H_shared`` (one call
+    per sweep); the step and |x| maxima of the xtol test (``op='max'``).
+    Every shard then takes the same joint decisions from the same values.
+    Per-lane work (residuals, Jacobians, the damped solves) stays on each
+    shard's device.  On one shard ``all_reduce`` returns its input, so the
+    arithmetic is that of a solve on one device."""
+    S = range(len(shards))
+    xs0 = [sh.x0 for sh in shards]
+    dtype = xs0[0].dtype
+    Bs = [x.shape[0] for x in xs0]
+    V = xs0[0].shape[1]
+    devs = [x.device for x in xs0]
+    gmask = [torch.as_tensor(list(map(bool, global_slots)), dtype=torch.bool,
+                             device=d) for d in devs]
+    valid = [torch.ones((B,), dtype=torch.bool, device=d)
+             if sh.valid is None else sh.valid
+             for sh, B, d in zip(shards, Bs, devs)]
+    w = [v.to(dtype) for v in valid]
+    nvalid = [torch.clamp(n, min=1.0)
+              for n in all_reduce([torch.sum(ws) for ws in w])]
+    share2d = [g[None, :, None] & g[None, None, :] for g in gmask]
+    local = [(~g)[None, :].to(dtype) for g in gmask]
+
+    def tie(xs):
+        means = all_reduce([torch.sum(xs[s] * w[s][:, None], dim=0) for s in S])
+        out = []
+        for s in S:
+            x = torch.where(gmask[s][None, :], (means[s] / nvalid[s])[None, :],
+                            xs[s])
+            if shards[s].lower is not None:
+                x = torch.maximum(x, shards[s].lower)
+            if shards[s].upper is not None:
+                x = torch.minimum(x, shards[s].upper)
+            out.append(x)
+        return out
+
+    def cost_grad_hess(xs):
+        """ONE sweep of every shard -> (joint cost, tied g, tied H) per
+        shard, the cost and the shared blocks all-reduced in one call."""
+        gs, Hs, parts = [], [], []
+        for s in S:
+            B = Bs[s]
+            r, J = shards[s].residual_jac_fn(xs[s], *shards[s].args)
+            r = r * w[s].reshape((B,) + (1,) * (r.dim() - 1))
+            J = J * w[s].reshape((B,) + (1,) * (J.dim() - 1))
+            g = torch.einsum("bvn,bn->bv", J, r)
+            H = torch.einsum("bun,bvn->buv", J, J)
+            parts.append(torch.cat([
+                torch.sum(r * r).reshape(1),  # w is 0/1, so w² = w
+                torch.sum(g * gmask[s][None, :], dim=0),
+                torch.sum(H * share2d[s], dim=0).reshape(-1)]))
+            gs.append(g)
+            Hs.append(H)
+        tot = all_reduce(parts)
+        costs = []
+        for s in S:
+            cost, g_shared, H_shared = torch.split(tot[s], [1, V, V * V])
+            gs[s] = torch.where(gmask[s][None, :], g_shared[None, :]
+                                / nvalid[s], gs[s])
+            Hs[s] = torch.where(share2d[s], H_shared.reshape(V, V)[None]
+                                / nvalid[s], Hs[s])
+            costs.append(cost[0])
+        return costs, gs, Hs
+
+    x = tie(xs0)
     cost, g, H = cost_grad_hess(x)
-    lam = torch.tensor(lam0, dtype=dtype, device=device)
-    active = torch.tensor(True, device=device)
-    converged = torch.tensor(False, device=device)
-    it_lane = torch.zeros((B,), dtype=torch.int32, device=device)
+    lam = [torch.tensor(lam0, dtype=dtype, device=d) for d in devs]
+    active = [torch.tensor(True, device=d) for d in devs]
+    converged = [torch.tensor(False, device=d) for d in devs]
+    it_lane = [torch.zeros((B,), dtype=torch.int32, device=d)
+               for B, d in zip(Bs, devs)]
     n_run = 0
     for it in range(max_iter):
-        if not bool(active):
+        if not bool(active[0]):
             break
-        delta = damped_solve(H, g, lam.expand(B))
-        x_trial = tie(x + delta)
+        x_trial = tie([x[s] + damped_solve(H[s], g[s], lam[s].expand(Bs[s]))
+                       for s in S])
         c_trial, g_trial, H_trial = cost_grad_hess(x_trial)
-        better = c_trial < cost
-        g = torch.where(better, g_trial, g)
-        H = torch.where(better, H_trial, H)
-        x_new = torch.where(better, x_trial, x)
-        cost_new = torch.where(better, c_trial, cost)
-        lam_new = torch.where(
-            better, lam * lam_down, torch.clamp(lam * lam_up, max=lam_max)
-        )
-        conv_f = (cost - c_trial) <= ftol * torch.clamp(cost, min=1e-30)
-        step = torch.abs(x_trial - x)
-        conv_x = torch.amax(step) <= xtol * (xtol + torch.amax(torch.abs(x)))
-        plateau = (lam_new >= 1e6 * lam0) & torch.isfinite(cost_new)
-        conv_now = (better & (conv_f | conv_x)) | plateau
-        done = conv_now | (lam_new >= lam_max)
-        # a lane's own iteration count: the last iteration at which its
-        # local slots moved past its xtol threshold, floored at ~8 ulp of
-        # the lane's scale (global slots move whenever any lane pulls them)
-        lane_step = torch.amax(step * local, dim=1)
-        lane_xn = torch.amax(torch.abs(x) * local, dim=1)
-        tol_lane = torch.maximum(xtol * (xtol + lane_xn), 1e-6 * lane_xn)
-        moved = better & (lane_step > tol_lane)
-        it_lane = torch.where(moved, it + 1, it_lane)
-        converged = converged | conv_now
-        active = active & ~done
-        x, cost, lam = x_new, cost_new, lam_new
+        step = [torch.abs(x_trial[s] - x[s]) for s in S]
+        # the xtol test's maxima over every lane of every shard
+        mx = all_reduce([torch.stack([torch.amax(step[s]),
+                                      torch.amax(torch.abs(x[s]))])
+                         for s in S], op="max")
+        for s in S:
+            better = c_trial[s] < cost[s]
+            g[s] = torch.where(better, g_trial[s], g[s])
+            H[s] = torch.where(better, H_trial[s], H[s])
+            x_new = torch.where(better, x_trial[s], x[s])
+            cost_new = torch.where(better, c_trial[s], cost[s])
+            lam_new = torch.where(
+                better, lam[s] * lam_down,
+                torch.clamp(lam[s] * lam_up, max=lam_max)
+            )
+            conv_f = (cost[s] - c_trial[s]) <= ftol * torch.clamp(
+                cost[s], min=1e-30)
+            conv_x = mx[s][0] <= xtol * (xtol + mx[s][1])
+            plateau = (lam_new >= 1e6 * lam0) & torch.isfinite(cost_new)
+            conv_now = (better & (conv_f | conv_x)) | plateau
+            done = conv_now | (lam_new >= lam_max)
+            # a lane's own iteration count: the last iteration at which its
+            # local slots moved past its xtol threshold, floored at ~8 ulp
+            # of the lane's scale (global slots move whenever any lane
+            # pulls them)
+            lane_step = torch.amax(step[s] * local[s], dim=1)
+            lane_xn = torch.amax(torch.abs(x[s]) * local[s], dim=1)
+            tol_lane = torch.maximum(xtol * (xtol + lane_xn),
+                                     1e-6 * lane_xn)
+            moved = better & (lane_step > tol_lane)
+            it_lane[s] = torch.where(moved, it + 1, it_lane[s])
+            converged[s] = converged[s] | conv_now
+            active[s] = active[s] & ~done
+            x[s], cost[s], lam[s] = x_new, cost_new, lam_new
         n_run = it + 1
 
     # per-lane cost: the loop carries only the joint sum, which must not be
     # broadcast per lane (it would inflate every lane's rms)
-    r_fin = residual_fn(x, *args)
-    lane_cost = torch.sum(r_fin * r_fin, dim=tuple(range(1, r_fin.dim())))
-    lane_stopped = it_lane < n_run
-    return LMResult(
-        x=x,
-        cost=lane_cost,
-        n_iter=torch.where(valid, it_lane, 0).to(torch.int32),
-        converged=(converged.expand(B) | lane_stopped) & valid,
-    )
+    out = []
+    for s in S:
+        r_fin = shards[s].residual_fn(x[s], *shards[s].args)
+        lane_cost = torch.sum(r_fin * r_fin,
+                              dim=tuple(range(1, r_fin.dim())))
+        lane_stopped = it_lane[s] < n_run
+        out.append(LMResult(
+            x=x[s],
+            cost=lane_cost,
+            n_iter=torch.where(valid[s], it_lane[s], 0).to(torch.int32),
+            converged=(converged[s].expand(Bs[s]) | lane_stopped)
+            & valid[s],
+        ))
+    return out

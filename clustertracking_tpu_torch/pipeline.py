@@ -32,7 +32,8 @@ from .link import link as _link
 from .ops.locate import (
     bandpass, feature_sizes, gaussian_blur, local_maxima_topk, np_median,
     np_percentile, tile_threshold_map)
-from .refine import _resolve_device, _stack_frames, refine_leastsq
+from .refine import (
+    _mesh_device, _resolve_device, _stack_frames, refine_leastsq)
 from .utils import default_pos_columns, default_size_columns, validate_tuple
 
 if TYPE_CHECKING:
@@ -402,15 +403,19 @@ def track(
 
     ``device``: every stage runs there; None is 'cuda', and raises
     ``RuntimeError`` where no CUDA device exists; pass ``device='cpu'`` to
-    run on the host.  ``mesh=`` (multi-device tracking) is not ported and
-    raises ``NotImplementedError`` (ROADMAP queue 1 item 13).
+    run on the host.
+
+    ``mesh`` (a ``parallel.sharding.make_mesh`` mesh): the main fit and
+    the recovery refits split their lanes over its devices, and the
+    single-shot run links frame-sharded (``link(mesh=...)``, the backend
+    'auto' unless ``link_backend`` names an auction); locate and find run
+    on ``device``, which defaults to the mesh's first, as in the
+    reference.  A checkpointed run links with the host ``Linker``.  Any
+    other ``mesh`` raises ``TypeError``.
     """
+    device = _mesh_device(mesh, device, "track")
     if mesh is not None:
-        raise NotImplementedError(
-            "track(mesh=...) (multi-device tracking) is not ported yet "
-            "(ROADMAP queue 1 item 13)"
-        )
-    device = _resolve_device(device, "track")
+        refine_kwargs["mesh"] = mesh
     if n_frames is None:
         n_frames = len(reader)
     if transfer_dtype is not None:
@@ -488,7 +493,7 @@ def track(
     out = _link(
         f, search_range, memory=memory, t_column=t_column,
         backend=link_backend if link_backend is not None else "auto",
-        device=device,
+        mesh=mesh, device=device,
     )
     diagnostics.record_ledger(
         linked=len(out),

@@ -31,17 +31,18 @@ cluster of the bucket together:
   (``_joint_global_dist``), and reports it in ``out.attrs``.
 
 Rows without a 'cluster' column are grouped by ``find_clusters``
-(``backend_find``: 'host', 'auto' or 'device', on the same device).  Not
-ported yet, and refused with ``NotImplementedError``: ``mesh=`` (ROADMAP
-queue 1 item 13).  pandas is imported by the DataFrame entry
-points only.  ``train_leastsq`` (train.py) is exported from here too, as
-in the reference.
+(``backend_find``: 'host', 'auto' or 'device', on the same device).
+``mesh=`` (a ``parallel.sharding.make_mesh`` mesh) splits every bucket's
+lanes over several devices (``_mesh_bucket_solver``).  pandas is
+imported by the DataFrame entry points only.  ``train_leastsq``
+(train.py) is exported from here too, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import types
 from functools import lru_cache
 from typing import TYPE_CHECKING, Optional
 
@@ -54,9 +55,10 @@ from .constraints import (
 from .find import find_clusters
 from .models.packing import build_layout
 from .models.registry import ModelSpec, get_model
+from .ops.collectives import Mesh, join_lanes, split_lanes
 from .ops.fused_lm import fused_lm_2d, kernel_route
 from .ops.gather import gather_stack, origins_for, radius_mask
-from .ops.lm import lm_solve, lm_solve_global
+from .ops.lm import GlobalShard, lm_solve, lm_solve_global_shards
 from .ops.pixel_lm import pixel_lm
 from .ops.residual import make_model_fns
 from .ops.rigid import make_constrained_fns
@@ -134,7 +136,28 @@ def _slot_bounds(layout, window_shape, frame_shape, bounds_key=(),
 
 
 @lru_cache(maxsize=256)
-def _bucket_solver(
+def _bucket_solver(*args, **kw):
+    """Build the solver for one bucket configuration on one device.
+
+    Arguments as ``_shard_solver``'s.  Returns ``(solve, layout)``;
+    ``solve(frames [T, *S] f32, frame_idx [B] i32, params0 [B, n, P] f32,
+    pose0 [B, Qt], valid [B] bool, fvalid [B, n] f32 | None) -> (params,
+    rms, converged, iters, std)`` runs on the device of ``frames``.
+    ``pose0`` is [B, 0] for an unconstrained or generic bucket and the
+    initial pose (``positions_to_pose``) for a rigid one; constrained
+    buckets are exact-size and ignore ``fvalid``.
+    """
+    solve_shards, layout, _, _ = _shard_solver(*args, **kw)
+
+    def solve(frames, frame_idx, params0, pose0, valid, fvalid=None):
+        return solve_shards([(frames, frame_idx, params0, pose0, valid,
+                              fvalid)])[0]
+
+    return solve, layout
+
+
+@lru_cache(maxsize=256)
+def _shard_solver(
     model: ModelSpec,
     ndim: int,
     isotropic: bool,
@@ -155,16 +178,16 @@ def _bucket_solver(
     gather_backend: str = "auto",
     streaming=None,
 ):
-    """Build the solver for one bucket configuration.
+    """Build one bucket configuration's solver over lanes split into
+    shards.
 
-    Returns ``(solve, layout)``; ``solve(frames [T, *S] f32,
-    frame_idx [B] i32, params0 [B, n, P] f32, pose0 [B, Qt], valid [B] bool,
-    fvalid [B, n] f32 | None) -> (params, rms, converged, iters, std)``
-    runs on the device of ``frames``.  ``pose0`` is [B, 0] for an
-    unconstrained or generic bucket and the initial pose
-    (``positions_to_pose``) for a rigid one; constrained buckets are
-    exact-size and ignore ``fvalid``.  ``residual_factor`` weighs a
-    generic constraint's penalty rows (by its square root).
+    Returns ``(solve_shards, layout, use_global, route)``:
+    ``solve_shards`` takes a list of per-shard argument tuples (those of
+    ``_bucket_solver``'s ``solve``, each on its shard's device) and
+    returns one output tuple per shard; ``use_global`` says whether the
+    bucket ties slots across lanes, ``route`` is ``kernel_route``'s pick.
+    ``residual_factor`` weighs a generic constraint's penalty rows (by
+    its square root).
 
     ``lm_backend`` as ``refine_leastsq``'s.  ``gather_backend``: 'auto'
     gathers windows with ``window_gather`` (the CUDA kernel on CUDA,
@@ -203,21 +226,28 @@ def _bucket_solver(
             gslots[Qt - 1] = True
         gslots[Qt:] = layout.global_slots
 
-    def solve(frames, frame_idx, params0, pose0, valid, fvalid=None):
-        device = frames.device
-        taken = _route_taken(lm_backend, route, device)
-        B = params0.shape[0]
-        frame_shape = tuple(frames.shape[1:])
+    def setup(frames, frame_idx, params0, pose0, valid, fvalid=None):
+        """One shard's (or the whole bucket's) solve state, on the device
+        of ``frames``."""
+        sh = types.SimpleNamespace(
+            frames=frames, frame_idx=frame_idx, params0=params0,
+            valid=valid, device=frames.device, B=params0.shape[0],
+            frame_shape=tuple(frames.shape[1:]))
+        device = sh.device
+        sh.taken = _route_taken(lm_backend, route, device)
         signal0 = params0[..., layout.signal_param_idx]
-        norm = torch.clamp(torch.amax(torch.abs(signal0), dim=1), min=1e-6)
-        lo_np, hi_np = _slot_bounds(layout, window_shape, frame_shape,
-                                    bounds_key, constraint)
-        lo_b = torch.as_tensor(lo_np, device=device)
-        hi_b = torch.as_tensor(hi_np, device=device)
+        sh.norm = torch.clamp(torch.amax(torch.abs(signal0), dim=1),
+                              min=1e-6)
+        sh.lo_np, sh.hi_np = _slot_bounds(layout, window_shape,
+                                          sh.frame_shape, bounds_key,
+                                          constraint)
+        sh.lo_b = torch.as_tensor(sh.lo_np, device=device)
+        sh.hi_b = torch.as_tensor(sh.hi_np, device=device)
         if constraint is None:
             fns = make_model_fns(model, layout, window_shape, device=device)
-            residual, residual_jac = fns.residual, fns.residual_jac
-            vect0 = layout.vect_from_params(params0)
+            sh.residual, sh.residual_jac = fns.residual, fns.residual_jac
+            sh.vect0 = layout.vect_from_params(params0)
+            sh.Qt = 0
 
             def positions_of(vect):
                 return layout.vect_to_params(vect, params0)[..., pos_idx]
@@ -229,96 +259,86 @@ def _bucket_solver(
             fvalid = None
             cfns = make_constrained_fns(model, layout, window_shape,
                                         constraint, residual_factor, device)
-            residual, residual_jac = cfns.residual, cfns.residual_jac
-            vect0 = cfns.vect_of(params0, pose0.to(params0.dtype))
+            sh.residual, sh.residual_jac = cfns.residual, cfns.residual_jac
+            sh.vect0 = cfns.vect_of(params0, pose0.to(params0.dtype))
+            sh.Qt = cfns.Qt
 
             def positions_of(vect):
                 return cfns.positions_of(vect, params0)
 
             def params_of(vect):
                 return cfns.params_of(vect, params0)
-        fv_extra = () if fvalid is None else (fvalid,)
+        sh.positions_of, sh.params_of = positions_of, params_of
+        sh.fvalid = fvalid
+        sh.fv_extra = () if fvalid is None else (fvalid,)
+        return sh
 
-        def solve_round(vect, need):
-            pos_at = positions_of(vect).contiguous()
-            origin = origins_for(pos_at, window_shape, frame_shape)
-            kw = dict(model=model, layout=layout,
-                      window_shape=window_shape, lo=lo_np, hi=hi_np,
-                      radius=radius, max_iter=lm_max_iter, ftol=ftol,
-                      xtol=xtol, constraint=constraint)
-            if use_global:
-                pixels = gather(frames, frame_idx, origin, window_shape)
-                mask = radius_mask(pos_at, origin, window_shape, radius,
-                                   fvalid=fvalid)
-                res = lm_solve_global(
-                    residual, residual_jac, vect, gslots,
-                    (params0, pixels, mask, origin, norm) + fv_extra,
-                    max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
-                    lower=lo_b, upper=hi_b, valid=need,
-                )._replace(npix=mask.sum(dim=1))
-            elif taken == "fused":
-                res = fused_lm_2d(vect, params0, frames, frame_idx, pos_at,
-                                  origin, norm, need, fvalid, **kw)
-            elif taken == "gathered":
-                pixels = gather(frames, frame_idx, origin, window_shape)
-                res = pixel_lm(vect, params0, pixels, pos_at, origin, norm,
-                               need, fvalid, streaming=streaming, **kw)
-            else:
-                pixels = gather(frames, frame_idx, origin, window_shape)
-                mask = radius_mask(pos_at, origin, window_shape, radius,
-                                   fvalid=fvalid)
-                res = lm_solve(
-                    residual, residual_jac, vect,
-                    (params0, pixels, mask, origin, norm) + fv_extra,
-                    max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
-                    lower=lo_b, upper=hi_b, valid=need,
-                )._replace(npix=mask.sum(dim=1))
-            return res, pos_at
+    def window_of(sh, vect):
+        """(positions, window origins) at ``vect``."""
+        pos_at = sh.positions_of(vect).contiguous()
+        return pos_at, origins_for(pos_at, window_shape, sh.frame_shape)
 
-        # Refit-on-shift: a lane whose positions moved more than max_shift
-        # is re-gathered around its new positions and solved again.  The
-        # next round starts from the latest iterate, but the REPORTED fit
-        # is each lane's best finite round (re-centering changes the data
-        # a lane is fit against, and a later round can be worse).
-        vect = vect0
-        need = valid
-        iters = torch.zeros((B,), dtype=torch.int32, device=device)
-        vect_best = vect0
-        rms_best = torch.full((B,), torch.inf, device=device)
-        conv_best = torch.zeros((B,), dtype=torch.bool, device=device)
-        for it in range(max(max_iter, 1)):
-            if it > 0 and not bool(need.any()):
-                break
-            with diagnostics.stage(f"refit_round_{it}"):
-                res, pos_at = solve_round(vect, need)
-            shift = torch.amax(
-                torch.abs(positions_of(res.x) - pos_at), dim=(1, 2)
-            )
-            npx_raw = res.npix
-            npx = torch.clamp(npx_raw, min=1.0)
-            # an empty fit mask (every feature outside its window) has
-            # residual ≡ 0 — that is a FAILED fit, not a perfect one
-            rms_new = torch.where(
-                npx_raw > 0.0, torch.sqrt(res.cost / npx), torch.inf
-            )
-            iters = iters + torch.where(need, res.n_iter, 0)
-            improved = need & (rms_new < rms_best)
-            vect_best = torch.where(improved[:, None], res.x, vect_best)
-            rms_best = torch.where(improved, rms_new, rms_best)
-            conv_best = torch.where(improved, res.converged, conv_best)
-            need = need & (shift > max_shift)
-            vect = res.x
-        params = params_of(vect_best)
+    def solve_round(sh, vect, need):
+        """One refit round of an untied bucket on its own device."""
+        pos_at, origin = window_of(sh, vect)
+        kw = dict(model=model, layout=layout,
+                  window_shape=window_shape, lo=sh.lo_np, hi=sh.hi_np,
+                  radius=radius, max_iter=lm_max_iter, ftol=ftol,
+                  xtol=xtol, constraint=constraint)
+        frames, frame_idx, params0 = sh.frames, sh.frame_idx, sh.params0
+        if sh.taken == "fused":
+            res = fused_lm_2d(vect, params0, frames, frame_idx, pos_at,
+                              origin, sh.norm, need, sh.fvalid, **kw)
+        elif sh.taken == "gathered":
+            pixels = gather(frames, frame_idx, origin, window_shape)
+            res = pixel_lm(vect, params0, pixels, pos_at, origin, sh.norm,
+                           need, sh.fvalid, streaming=streaming, **kw)
+        else:
+            pixels = gather(frames, frame_idx, origin, window_shape)
+            mask = radius_mask(pos_at, origin, window_shape, radius,
+                               fvalid=sh.fvalid)
+            res = lm_solve(
+                sh.residual, sh.residual_jac, vect,
+                (params0, pixels, mask, origin, sh.norm) + sh.fv_extra,
+                max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
+                lower=sh.lo_b, upper=sh.hi_b, valid=need,
+            )._replace(npix=mask.sum(dim=1))
+        return res, pos_at
 
+    def tied_round(shs, vects, needs):
+        """One refit round of a tied bucket: ONE joint lm_solve_global over
+        every shard's lanes, the windows gathered on each shard's
+        device."""
+        pos_ats, masks, parts = [], [], []
+        for sh, vect, need in zip(shs, vects, needs):
+            pos_at, origin = window_of(sh, vect)
+            pixels = gather(sh.frames, sh.frame_idx, origin, window_shape)
+            mask = radius_mask(pos_at, origin, window_shape, radius,
+                               fvalid=sh.fvalid)
+            parts.append(GlobalShard(
+                sh.residual, sh.residual_jac, vect,
+                (sh.params0, pixels, mask, origin, sh.norm) + sh.fv_extra,
+                sh.lo_b, sh.hi_b, need))
+            pos_ats.append(pos_at)
+            masks.append(mask)
+        results = lm_solve_global_shards(
+            parts, gslots, max_iter=lm_max_iter, ftol=ftol, xtol=xtol)
+        return [(res._replace(npix=mask.sum(dim=1)), pos_at)
+                for res, mask, pos_at in zip(results, masks, pos_ats)]
+
+    def finish(sh, vect_best, rms_best, conv_best, iters):
+        """The outputs of one shard, with ``compute_error``'s std."""
+        device, params0, fvalid = sh.device, sh.params0, sh.fvalid
+        params = sh.params_of(vect_best)
         if not compute_error:
             return (params, rms_best, conv_best, iters,
                     torch.zeros((0,), device=device))
-        pos = positions_of(vect_best)
-        origin = origins_for(pos, window_shape, frame_shape)
-        pixels = gather(frames, frame_idx, origin, window_shape)
+        pos = sh.positions_of(vect_best)
+        origin = origins_for(pos, window_shape, sh.frame_shape)
+        pixels = gather(sh.frames, sh.frame_idx, origin, window_shape)
         mask = radius_mask(pos, origin, window_shape, radius, fvalid=fvalid)
-        r, J = residual_jac(
-            vect_best, params0, pixels, mask, origin, norm, *fv_extra
+        r, J = sh.residual_jac(
+            vect_best, params0, pixels, mask, origin, sh.norm, *sh.fv_extra
         )
         H = torch.einsum("bun,bvn->buv", J, J)
         Vc = H.shape[-1]
@@ -349,17 +369,134 @@ def _bucket_solver(
         # (G = ∂pos/∂vect, per lane) gives per-coordinate position errors;
         # the other slots map directly.
         G = torch.func.vmap(torch.func.jacfwd(
-            lambda v: positions_of(v[None])[0]))(vect_best)  # [B, n, D, Vc]
+            lambda v: sh.positions_of(v[None])[0]))(vect_best)  # [B,n,D,Vc]
         var_pos = torch.einsum("bndu,buv,bndv->bnd", G, cov, G) \
             * sigma2[:, None, None]
-        std_params = layout.vect_to_params(std_vect[:, cfns.Qt:], nan_params)
+        std_params = layout.vect_to_params(std_vect[:, sh.Qt:], nan_params)
         p0 = pos_idx[0]
         std_params = torch.cat(
             [std_params[..., :p0], torch.sqrt(torch.clamp(var_pos, min=0.0)),
              std_params[..., p0 + ndim:]], dim=-1)
         return params, rms_best, conv_best, iters, std_params
 
-    return solve, layout
+    def solve_shards(shard_args):
+        """The refit-on-shift loop over lanes split into shards, in
+        lockstep: every shard runs the same rounds, and the loop stops
+        when no lane of any shard still needs a round.  A tied bucket's
+        round is one joint solve over every shard (its sums all-reduced);
+        an untied bucket's rounds are each shard's own."""
+        shs = [setup(*a) for a in shard_args]
+        # Refit-on-shift: a lane whose positions moved more than max_shift
+        # is re-gathered around its new positions and solved again.  The
+        # next round starts from the latest iterate, but the REPORTED fit
+        # is each lane's best finite round (re-centering changes the data
+        # a lane is fit against, and a later round can be worse).
+        vect = [sh.vect0 for sh in shs]
+        need = [sh.valid for sh in shs]
+        iters = [torch.zeros((sh.B,), dtype=torch.int32, device=sh.device)
+                 for sh in shs]
+        vect_best = list(vect)
+        rms_best = [torch.full((sh.B,), torch.inf, device=sh.device)
+                    for sh in shs]
+        conv_best = [torch.zeros((sh.B,), dtype=torch.bool, device=sh.device)
+                     for sh in shs]
+        for it in range(max(max_iter, 1)):
+            if it > 0 and not any(bool(nd.any()) for nd in need):
+                break
+            with diagnostics.stage(f"refit_round_{it}"):
+                if use_global:
+                    rounds = tied_round(shs, vect, need)
+                else:
+                    rounds = [solve_round(sh, v, nd)
+                              for sh, v, nd in zip(shs, vect, need)]
+            for s, (sh, (res, pos_at)) in enumerate(zip(shs, rounds)):
+                shift = torch.amax(
+                    torch.abs(sh.positions_of(res.x) - pos_at), dim=(1, 2)
+                )
+                npx_raw = res.npix
+                npx = torch.clamp(npx_raw, min=1.0)
+                # an empty fit mask (every feature outside its window) has
+                # residual ≡ 0 — that is a FAILED fit, not a perfect one
+                rms_new = torch.where(
+                    npx_raw > 0.0, torch.sqrt(res.cost / npx), torch.inf
+                )
+                iters[s] = iters[s] + torch.where(need[s], res.n_iter, 0)
+                improved = need[s] & (rms_new < rms_best[s])
+                vect_best[s] = torch.where(improved[:, None], res.x,
+                                           vect_best[s])
+                rms_best[s] = torch.where(improved, rms_new, rms_best[s])
+                conv_best[s] = torch.where(improved, res.converged,
+                                           conv_best[s])
+                need[s] = need[s] & (shift > max_shift)
+                vect[s] = res.x
+        return [finish(*a) for a in zip(shs, vect_best, rms_best, conv_best,
+                                         iters)]
+
+    return solve_shards, layout, use_global, route
+
+
+def _mesh_bucket_solver(mesh, model, ndim, isotropic, n, param_mode_key,
+                        window_shape, radius, bounds_key, constraint,
+                        residual_factor, max_iter, max_shift, lm_max_iter,
+                        ftol, xtol, compute_error, lm_backend="auto",
+                        gather_backend="auto", streaming=None):
+    """The bucket solver over a ``Mesh``: the multi-device user-API path.
+
+    Lanes (the cluster batch) split into ``mesh.size`` contiguous blocks,
+    block ``s`` on ``mesh.devices[s]``; the frames go whole to each
+    distinct device, once.  Two routes:
+
+    - untied buckets (free, and rigid without a shared distance): each
+      shard runs ``_shard_solver``'s refit-on-shift loop on its own
+      device and lanes, through the kernel route ``kernel_route`` picks
+      there; lanes are independent, so no collective is needed and each
+      lane's result is the single-device one;
+    - tied buckets ('global' modes, a ``dimer_global()`` distance): the
+      refit loop runs in lockstep over the shards, each round one joint
+      ``lm_solve_global_shards`` whose sums over lanes are all-reduced
+      (``ops/collectives.py::all_reduce``) — what GSPMD inserts in the
+      reference.
+
+    Returns ``(call, layout, backend_tag)``: ``call`` takes and returns
+    what the single-device solver does, its outputs joined in lane order
+    on the mesh's first device; the tag is the single-device one with
+    ``-sharded`` appended (``cuda-fused-sharded``,
+    ``cuda-torch-global-sharded``, ...)."""
+    solve_shards, layout, use_global, route = _shard_solver(
+        model, ndim, isotropic, n, param_mode_key, window_shape, radius,
+        bounds_key, constraint, residual_factor, max_iter, max_shift,
+        lm_max_iter, ftol, xtol, compute_error, lm_backend, gather_backend,
+        streaming)
+    dev0 = mesh.devices[0]
+    backend_tag = _backend_tag(lm_backend, route, use_global, constraint,
+                               dev0) + "-sharded"
+
+    def call(stack, fidx, params0, pose0, valid, fvalid=None):
+        lanes = [None if a is None else torch.as_tensor(a)
+                 for a in (fidx, params0, pose0, valid, fvalid)]
+        shards = split_lanes(
+            mesh, lanes, shared=(torch.as_tensor(stack, dtype=torch.float32),))
+        if use_global:   # one lockstep loop, its ties across every shard
+            outs = solve_shards(shards)
+        else:            # each shard's own loop
+            outs = [solve_shards([a])[0] for a in shards]
+        joined = [join_lanes(parts, dev0) for parts in zip(*outs)]
+        if not compute_error:   # the std placeholder has no lanes
+            joined[4] = outs[0][4].to(dev0)
+        return tuple(joined)
+
+    return call, layout, backend_tag
+
+
+def _backend_tag(lm_backend, route, use_global, constraint, device):
+    """A dispatch's ``diagnostics`` tag: the device type, the route taken
+    (``fused``, ``gathered``, ``torch``), ``-rigid`` / ``-penalty`` for a
+    constrained bucket and ``-global`` for a tied one."""
+    kind = "" if constraint is None else (
+        "-rigid" if constraint.kind == "rigid" else "-penalty")
+    kind += "-global" if use_global else ""
+    return (f"{device.type}-{_route_taken(lm_backend, route, device)}"
+            f"{kind}")
 
 
 def _global_distance(constraint) -> bool:
@@ -464,6 +601,20 @@ def _resolve_device(device, who):
             )
         device = "cuda"
     return torch.device(device)
+
+
+def _mesh_device(mesh, device, who):
+    """The device of an entry point that takes ``mesh=``: ``device``, or
+    the mesh's first device when only a mesh is given, else as
+    ``_resolve_device``.  A ``mesh`` that is not the port's ``Mesh``
+    (``parallel.sharding.make_mesh``) raises ``TypeError``."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"{who}: mesh must be a clustertracking_tpu_torch Mesh "
+            f"(parallel.sharding.make_mesh), not {type(mesh).__name__}")
+    if mesh is not None and device is None:
+        device = mesh.devices[0]
+    return _resolve_device(device, who)
 
 
 def _nan_trap_raise(p, rms, model, ndim):
@@ -572,13 +723,16 @@ def refine_leastsq(
     objects or reference-style ``{'type': 'eq', 'fun': f, 'args': a,
     'cluster_size': n}`` dicts (``fun`` takes torch positions [n, D]);
     a constraint built for another ndim raises ``ValueError``.
+
+    ``mesh``: a ``Mesh`` (``parallel.sharding.make_mesh``) over whose
+    shards every bucket's lanes split, padded to a multiple of
+    lcm(32, mesh size); the frames go to each of its devices once, and
+    ``device`` defaults to its first.  Untied buckets give every lane its
+    single-device result; slots tied across lanes all-reduce across the
+    shards (``_mesh_bucket_solver``).  Dispatch tags end in ``-sharded``.
+    Any other ``mesh`` raises ``TypeError``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-device fits) is not ported yet (ROADMAP queue 1 "
-            "item 13)"
-        )
-    device = _resolve_device(device, "refine_leastsq")
+    device = _mesh_device(mesh, device, "refine_leastsq")
     if pos_columns is None:
         pos_columns = guess_pos_columns(f)
     ndim = len(pos_columns)
@@ -699,6 +853,9 @@ def refine_leastsq(
     frame_numbers = sorted(f[t_column].unique())
     in_flight: list = []
     drain_queue: list = []
+    # under a mesh the lanes must split evenly over its shards
+    lane_quant = _LANE_PAD if mesh is None else math.lcm(_LANE_PAD,
+                                                         mesh.size)
 
     def _drain_bucket(p):
         """Copy one queued bucket's results to the host and write them
@@ -723,14 +880,9 @@ def refine_leastsq(
             _nan_trap_raise(p, rms, model, ndim)
         con = p["con"]
         ug = _uses_global(p["layout"], con)
-        route = _route_taken(
-            lm_backend,
-            kernel_route(model, p["layout"], ug, con, p["wshape"]),
-            device,
-        )
-        kind = "" if con is None else (
-            "-rigid" if con.kind == "rigid" else "-penalty")
-        kind += "-global" if ug else ""
+        tag = p["backend_tag"] or _backend_tag(
+            lm_backend, kernel_route(model, p["layout"], ug, con, p["wshape"]),
+            ug, con, device)
         diagnostics.record_batch(
             cluster_size=n,
             n_clusters=int(valid.sum()),
@@ -742,7 +894,7 @@ def refine_leastsq(
             max_lm_iters=int(iters[valid].max()) if valid.any() else 0,
             mean_rms=float(rms[valid].mean()) if valid.any() else 0.0,
             wall_s=p["dispatch_s"] + (time.perf_counter() - t_fetch),
-            backend=f"{device.type}-{route}{kind}",
+            backend=tag,
         )
 
         # vectorized writeback across the whole bucket; pos_mat slots of
@@ -835,7 +987,8 @@ def refine_leastsq(
                     "frames — re-run find_clusters"
                 )
             B = len(starts)
-            Bpad = max(_LANE_PAD, int(np.ceil(B / _LANE_PAD)) * _LANE_PAD)
+            Bpad = max(lane_quant,
+                       int(np.ceil(B / lane_quant)) * lane_quant)
             flat = initial_params(grp, images)          # [rows, P]
             params0 = np.zeros((Bpad, n, P), dtype=np.float32)
             # pad features replicate member 0 (keeps bbox/window geometry
@@ -880,12 +1033,18 @@ def refine_leastsq(
                     min(d, s) for d, s in zip(dyn, frame_shape)
                 )
             con = con_map.get(n)
-            solver, layout = _bucket_solver(
+            bucket_args = (
                 model, ndim, isotropic, n, param_mode_key, wshape,
                 radius, bounds_key, con, residual_factor,
                 max_iter, max_shift, lm_max_iter, ftol, xtol,
                 compute_error, lm_backend,
             )
+            if mesh is None:
+                solver, layout = _bucket_solver(*bucket_args)
+                backend_tag = None
+            else:
+                solver, layout, backend_tag = _mesh_bucket_solver(
+                    mesh, *bucket_args)
             if con is not None and con.kind == "rigid":
                 pose0 = positions_to_pose(params0[:, :, 2:2 + ndim], con)
             else:
@@ -905,6 +1064,7 @@ def refine_leastsq(
             in_flight.append(dict(
                 handles=handles, n=n, B=B, Bpad=Bpad, valid=valid,
                 pos_mat=pos_mat, layout=layout, wshape=wshape, con=con,
+                backend_tag=backend_tag,
                 dispatch_s=time.perf_counter() - t_dispatch,
                 # non-finite trap context (diagnostics.debug_nans)
                 params0=params0, cids=cid[starts], tvals=t_arr[starts],
@@ -981,7 +1141,7 @@ def refine_leastsq(
                     frames_per_dispatch=frames_per_dispatch,
                     lm_max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
                     backend_find=backend_find, lm_backend=lm_backend,
-                    device=device,
+                    mesh=mesh, device=device,
                 )
                 for col in refreshed:
                     if col in sub.columns:

@@ -35,7 +35,7 @@ from .ops.gather import origins_for, radius_mask
 from .ops.residual import make_model_fns
 from .ops.window_gather import window_gather
 from .refine import (
-    _pooled_buckets, _pooled_eq, _resolve_device, refine_leastsq)
+    _mesh_device, _pooled_buckets, _pooled_eq, refine_leastsq)
 from .utils import default_size_columns, guess_pos_columns, validate_tuple
 
 if TYPE_CHECKING:
@@ -114,16 +114,12 @@ def train_leastsq(
     The first ``max_samples`` clusters of at most ``max_cluster_size``
     features are sampled.  ``device`` as ``refine_leastsq``'s: None is
     'cuda', and raises ``RuntimeError`` where no CUDA device exists.
-    Other keyword arguments go to ``refine_leastsq``; ``mesh=`` raises
-    ``NotImplementedError``.  See the module docstring for the method.
+    Other keyword arguments go to ``refine_leastsq``: ``mesh=`` splits
+    every refit's lanes over its devices (``device`` then defaults to its
+    first), while the pooled Newton step stays on ``device``, as in the
+    reference.  See the module docstring for the method.
     """
-    if kwargs.get("mesh") is not None:
-        raise NotImplementedError(
-            "mesh= (multi-device fits) is not ported yet (ROADMAP queue 1 "
-            "item 13)"
-        )
-    kwargs.pop("mesh", None)
-    device = _resolve_device(device, "train_leastsq")
+    device = _mesh_device(kwargs.get("mesh"), device, "train_leastsq")
     if pos_columns is None:
         pos_columns = guess_pos_columns(f)
     ndim = len(pos_columns)

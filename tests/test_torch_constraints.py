@@ -11,10 +11,10 @@ constrained fits, held to the JAX package on the same numpy inputs.
   ``refine_leastsq`` in both packages (the port on the CPU: lm_solve):
   positions and sizes to 1e-3 px, bond lengths as the reference asserts
   them, plus the reference's own ground-truth bounds.
-- What the port refuses: ``mesh=`` with a globally tied distance
-  (``NotImplementedError`` naming ROADMAP queue 1 item 13; the distance
-  itself runs, tests/test_torch_global.py) and a constraint of the wrong
-  ndim.
+- What the port refuses: a ``mesh=`` that is not the port's ``Mesh``
+  with a globally tied distance (``TypeError``; the distance runs,
+  tests/test_torch_global.py, and under a mesh,
+  tests/test_torch_parallel_fit.py) and a constraint of the wrong ndim.
 
 Every constraint is built once, in the reference, and carried into the
 port by ``interop.constraint_from_reference``.
@@ -261,10 +261,10 @@ def _global_frame():
 
 
 def test_global_distance_raises_not_implemented():
-    """What still raises for dimer_global()'s whole-video distance is its
-    multi-device form, mesh= (ROADMAP queue 1 item 13)."""
+    """dimer_global()'s whole-video distance runs on one device and under
+    the port's ``Mesh``; a ``mesh`` of another kind raises ``TypeError``."""
     img, f, _, kw = _global_frame()
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         refine_leastsq(f, img, mesh=object(), **kw)
 
 

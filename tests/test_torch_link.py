@@ -296,7 +296,7 @@ def test_linker_matches_reference_on_random_subnets():
 
 def test_link_refusals():
     f = _memory_gap()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):   # not the port's Mesh
         ctt.link(f, 2.0, mesh=object())
     with pytest.raises(ValueError):
         ctt.link(f, 2.0, backend="nearest")

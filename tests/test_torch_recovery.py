@@ -712,8 +712,10 @@ def test_trace_to_writes_a_readable_trace(tmp_path):
 
 
 def test_track_refuses_only_mesh():
+    """With recovery passes on, ``track`` refuses only a ``mesh`` that is
+    not the port's ``Mesh``."""
     _, reader = _merged_scene()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         track_cpu(reader, diameter=9, mesh=object())
 
 

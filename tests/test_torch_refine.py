@@ -386,7 +386,10 @@ def test_spill_profile_of_a_custom_model_takes_numpy():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "item 13"),
+    # mesh= was refused until multi-device fits were ported (ROADMAP queue
+    # 1 item 13); the case keeps its id and now checks that a mesh which is
+    # not the port's Mesh raises TypeError
+    pytest.param(dict(mesh=object()), "Mesh", id="kw0-item 13"),
     # backend_find='device' was refused until the device label propagation
     # was ported (ROADMAP queue 1 item 6, later item 10); the case keeps its
     # id and now checks that it groups the rows as the host path does
@@ -404,7 +407,7 @@ def test_refine_leastsq_refuses_what_is_not_ported(kw, match):
                           **{**base, "backend_find": "host"})
         pd.testing.assert_frame_equal(out, host)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         refine_cpu(f, img, **base)
 
 

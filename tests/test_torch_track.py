@@ -16,8 +16,10 @@ the port only).  What has to agree:
 - a checkpoint that the JAX ``track`` wrote for its first chunk resumes
   in the port to the port's single-shot result.
 
-``mesh=`` raises ``NotImplementedError``; the recovery passes and
-``transfer_dtype`` are held in tests/test_torch_recovery.py.  The card
+A ``mesh=`` that is not the port's ``Mesh`` raises ``TypeError``
+(``track(mesh=)`` is held in tests/test_torch_parallel_fit.py); the
+recovery passes and ``transfer_dtype`` are held in
+tests/test_torch_recovery.py.  The card
 test holds ``track`` on CUDA to the same call on the CPU.
 """
 import functools
@@ -331,11 +333,13 @@ def test_checkpoint_survives_hard_kill(tmp_path):
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_track_refuses_what_is_not_ported(kw):
-    """Only ``mesh=`` (multi-device tracking) is not ported; recovery
-    passes and ``transfer_dtype`` are held to the reference in
-    tests/test_torch_recovery.py."""
+    """Everything of ``track`` is ported; what it refuses is a ``mesh``
+    that is not the port's ``Mesh`` (``TypeError``).  Recovery passes and
+    ``transfer_dtype`` are held to the reference in
+    tests/test_torch_recovery.py, ``mesh=`` in
+    tests/test_torch_parallel_fit.py."""
     _, reader = _dimer_video(T=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         track_cpu(reader, diameter=7, **kw)
 
 

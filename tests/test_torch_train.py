@@ -6,7 +6,9 @@ reference's, and each case's own ground-truth tolerance on the port.
 Also what the port refuses: 'size' trained globally on data with per-axis
 size columns (``ValueError`` before any fit; the reference's docstring
 excludes it, and it refuses only by accident, deep in its first refit),
-and ``mesh=`` (``NotImplementedError``).  The card test trains on CUDA.
+and a ``mesh=`` that is not the port's ``Mesh`` (``TypeError``; the
+mesh itself is held in tests/test_torch_parallel_fit.py).  The card test
+trains on CUDA.
 """
 import functools
 
@@ -213,8 +215,9 @@ def test_train_refuses_global_anisotropic_size():
 
 
 def test_train_refuses_mesh():
+    """A mesh that is not the port's ``Mesh`` raises before any fit."""
     img, f = _scene(False)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         train_cpu(f, img, mesh=object(), **KW)
 
 
