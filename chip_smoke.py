@@ -26,8 +26,9 @@ each:
 
 1. device   — fail unless CUDA is available; the card's name and power
               limit as nvidia-smi reports them;
-2. build    — build csrc/fused_lm_2d.cu, window_gather.cu and pixel_lm.cu
-              (one nvcc each, sm_90a, started together) and time them;
+2. build    — build csrc/fused_lm_2d.cu, window_gather.cu, pixel_lm.cu
+              and block_lm.cu (one nvcc each, sm_90a, started together)
+              and time them;
               each instantiation's registers, the warps per SM they allow,
               and any spill;
 3. kernel   — one fused_lm_2d launch against fused_lm_2d_reference on the
@@ -119,10 +120,12 @@ each:
               on the card against the CPU; checkpointed and resumed
               against the single-shot host-linked run; fused_lm_2d vs
               plain on its first launch;
-23. track5  — config 5 through track: the binned auction, fused_lm_2d and
-              window_gather launches, dispatches by tag, accuracy, the
-              device's idle share; both kernels vs plain on their first
-              launches;
+23. track5  — config 5 through track: the binned auction, fused_lm_2d,
+              window_gather and block_lm launches (no bucket on
+              lm_solve), dispatches by tag, accuracy, the device's idle
+              share, the cuda-block rate beside fit_s; the three kernels
+              vs plain on their first launches; block_lm vs plain on a
+              synthetic bucket of 32 chains of 40 features (V = 120);
 24. synth   — ops/synth.frames_from_df at config 5's size (4 frames of
               1024×1024, 10,000 features each) on the card: against the
               CPU's render and artificial.CoordinateReader, two renders
@@ -138,9 +141,10 @@ each:
               benchmarks/recovery_exp.py scores it and gated by the
               reference's own one-pass accuracy (coverage ≥ 93.6%, ghosts
               ≤ 1.3% of the outputs, median error ≤ 0.095 px): stage
-              walls, summary_by_backend, launches, idle share;
-              fused_lm_2d and window_gather vs plain on the recovery
-              refit's first launches;
+              walls, summary_by_backend, launches, idle share, the
+              cuda-block rate beside fit_s; fused_lm_2d, window_gather
+              and block_lm vs plain on the recovery refit's first
+              launches;
 27. trace   — diagnostics.trace_to around one config 2 track call: one
               trace file holding the stage ranges and the card's kernels;
 28. mesh    — the multi-device path over a 4-shard mesh on the visible
@@ -202,7 +206,7 @@ FLUSH_BYTES = 128 << 20   # read between timed gathers: over the 50 MB L2
 GATHER_REPS = 20
 STREAM_WINDOW = (161, 161)
 STREAM_RADIUS = (6.5, 6.5)
-KERNELS = ("fused_lm_2d", "window_gather", "pixel_lm")
+KERNELS = ("fused_lm_2d", "window_gather", "pixel_lm", "block_lm")
 # The rigid cells' geometry: bond lengths and edges as exact as float32
 # positions of a few hundred px allow (2D and 3D dimers, trimers), and the
 # tetramer's edges through the rotation vector to 1e-3 px.
@@ -387,9 +391,10 @@ def phase_build():
         # profile, pose), in the order nvcc reports them
         # (D, streamed, profile, pose, slot ceiling; fused_lm_2d: profile,
         # pose, slot ceiling) = registers/warps per SM that they allow
-        # window_gather: 256 threads per block (kThreads in the .cu)
+        # window_gather and block_lm (D, profile): 256 threads per block
+        # (kThreads in the .cu)
         entries = _ptxas_entries(report)
-        wpb = 8 if name == "window_gather" else 1   # warps per block
+        wpb = 8 if name in ("window_gather", "block_lm") else 1
         regs = " ".join(
             ",".join(_template_args(e))
             + f"={r}/{_warps_by_registers(r, wpb)}" for e, r, _ in entries)
@@ -901,10 +906,12 @@ def phase_kernel3d(batch, big, device, smi):
 
 
 def _reset_counts():
+    from clustertracking_tpu_torch.ops.block_lm import block_lm
     from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
     from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
     from clustertracking_tpu_torch.ops.window_gather import window_gather
 
+    block_lm.launches = 0
     fused_lm_2d.launches = 0
     window_gather.launches = 0
     pixel_lm.launches_resident = 0
@@ -912,6 +919,7 @@ def _reset_counts():
 
 
 def _counts():
+    from clustertracking_tpu_torch.ops.block_lm import block_lm
     from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
     from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
     from clustertracking_tpu_torch.ops.window_gather import window_gather
@@ -919,7 +927,8 @@ def _counts():
     return dict(fused_lm_2d=fused_lm_2d.launches,
                 window_gather=window_gather.launches,
                 resident=pixel_lm.launches_resident,
-                streamed=pixel_lm.launches_streamed)
+                streamed=pixel_lm.launches_streamed,
+                block_lm=block_lm.launches)
 
 
 def phase_main3d(batch, device, smi):
@@ -1992,6 +2001,30 @@ def _lanes(res, keep):
     return type(res)(*(None if v is None else v[keep] for v in res))
 
 
+def _held(res_k, res_p, kw, pos, what, cap_by_cost):
+    """``_agreement`` of a kernel's and its plain version's results; with
+    ``cap_by_cost``, lanes at the iteration cap in either version are held
+    by cost only.  Returns (agreement, note, max |dpos| over every lane or
+    None, the kernel's lanes under every gate)."""
+    note, max_err = "", None
+    if cap_by_cost:
+        cap = ((res_k.n_iter >= kw["max_iter"])
+               | (res_p.n_iter >= kw["max_iter"]))
+        ck, cp = res_k.cost[cap].cpu().numpy(), res_p.cost[cap].cpu().numpy()
+        cap_rel = float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp),
+                                                           1e-30),
+                               initial=0.0))
+        max_err = float(np.abs(res_k.x.cpu().numpy()[:, pos]
+                               - res_p.x.cpu().numpy()[:, pos]).max())
+        note = (f"; {int(cap.sum())} lanes ran to the {kw['max_iter']}-"
+                f"iteration cap in either version, held by cost only: max "
+                f"cost rel {cap_rel:.3e}, max |dpos| of all lanes "
+                f"{max_err:.3e} px")
+        check(cap_rel <= COST_RTOL, f"{what}: cost disagrees at the cap")
+        res_k, res_p = _lanes(res_k, ~cap), _lanes(res_p, ~cap)
+    return _agreement(res_k, res_p, pos), note, max_err, res_k
+
+
 def _replay(first, what, smi, cap_by_cost=False):
     """fused_lm_2d vs its plain version on a main path's first launch
     (``_FirstLaunch``): agreement, ms, bound.  Returns the kernels-line
@@ -2017,25 +2050,10 @@ def _replay(first, what, smi, cap_by_cost=False):
     res_p, plain_ms = _timed(lambda: plain(args, kw))
     res_k = call(args, kw)
     torch.cuda.synchronize()
-    note, max_err = "", None
     # the bound counts the work of every lane of the launch
     bound = _lm_bound(res_k, args, kw)
-    if cap_by_cost:
-        cap = ((res_k.n_iter >= kw["max_iter"])
-               | (res_p.n_iter >= kw["max_iter"]))
-        ck, cp = res_k.cost[cap].cpu().numpy(), res_p.cost[cap].cpu().numpy()
-        cap_rel = float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp),
-                                                           1e-30),
-                               initial=0.0))
-        max_err = float(np.abs(res_k.x.cpu().numpy()[:, pos]
-                               - res_p.x.cpu().numpy()[:, pos]).max())
-        note = (f"; {int(cap.sum())} lanes ran to the {kw['max_iter']}-"
-                f"iteration cap in either version, held by cost only: max "
-                f"cost rel {cap_rel:.3e}, max |dpos| of all lanes "
-                f"{max_err:.3e} px")
-        check(cap_rel <= COST_RTOL, f"{what}: cost disagrees at the cap")
-        res_k, res_p = _lanes(res_k, ~cap), _lanes(res_p, ~cap)
-    a = _agreement(res_k, res_p, pos)
+    a, note, max_err, res_k = _held(res_k, res_p, kw, pos, what,
+                                    cap_by_cost)
     ms = _cuda_ms(lambda: call(args, kw), 5)
     print(f"[{what}] {smi}: fused_lm_2d vs plain on the first launch "
           f"(B={len(args[0])}, {len(res_k.cost)} lanes under every gate, "
@@ -2046,6 +2064,240 @@ def _replay(first, what, smi, cap_by_cost=False):
           f"bound {ms / bound['bound_ms']:.1f}x)", flush=True)
     return dict(max_abs_err=a["pos"] if max_err is None else max_err, ms=ms,
                 plain_ms=plain_ms, **bound, library_ms=None)
+
+
+class _FirstBlock:
+    """Wraps ``refine.block_lm`` while a main path runs: keeps the lanes of
+    each launch and the arguments of the first launch while armed
+    (``_Refit`` arms it for a recovery pass's refit), to be replayed
+    against the plain version afterwards."""
+
+    armed = True
+
+    def __enter__(self):
+        from clustertracking_tpu_torch import refine
+
+        self.args = self.kw = None
+        self.lanes = []
+        self.orig = refine.block_lm
+
+        def wrapped(*args, **kw):
+            self.lanes.append(int(args[0].shape[0]))
+            if self.armed and self.args is None:
+                self.args, self.kw = args, kw
+            return self.orig(*args, **kw)
+
+        refine.block_lm = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from clustertracking_tpu_torch import refine
+
+        refine.block_lm = self.orig
+
+
+def _block_cell(args, kw, what, smi, label, budget=False):
+    """block_lm vs block_lm_reference on one launch's arguments, lanes at
+    the iteration cap held by cost only (as ``_replay``): agreement, ms,
+    bound.  ``budget``: the launch's cap is a refit's short budget, which
+    stops every lane mid-descent; those lanes are held by their summed
+    cost (``_mid_descent``).  Returns the kernels-line entry without its
+    launches."""
+    import torch
+
+    from clustertracking_tpu_torch.ops.block_lm import (
+        block_lm, block_lm_reference)
+
+    layout = kw["layout"]
+    pos = sorted({int(s) for p in layout.pos_param_idx
+                  for s in layout.slot_idx[:, p]})
+    res_p, plain_ms = _timed(lambda: block_lm_reference(*args, **kw))
+    res_k = block_lm(*args, **kw)
+    torch.cuda.synchronize()
+    bound = _lm_bound(res_k, args, kw)
+    res_k, extra = _undetermined(res_k, res_p, args, kw, pos)
+    max_err = float((res_k.x[:, pos] - res_p.x[:, pos]).abs().max())
+    if budget:
+        res_k, res_p, more = _mid_descent(res_k, res_p, args, kw, what)
+        extra += f"{more}, max |dpos| of all lanes {max_err:.3e} px"
+    a, note, _, res_k = _held(res_k, res_p, kw, pos, what, not budget)
+    ms = _cuda_ms(lambda: block_lm(*args, **kw), 5)
+    print(f"[{what}] {smi}: block_lm vs plain on {label} (B={len(args[0])}"
+          f" blocks, n={layout.n_features}, V={layout.n_slots}, "
+          f"{len(res_k.cost)} lanes under every gate, window "
+          f"{kw['window_shape']}, mean in-mask npix "
+          f"{float(args[3].sum(1).mean()):.0f}): {_fmt(a)}{note}{extra}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; time over "
+          f"bound {ms / bound['bound_ms']:.1f}x)", flush=True)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **bound,
+                library_ms=None)
+
+
+def _undetermined(res_k, res_p, args, kw, pos):
+    """Position slots the data do not determine: a feature that left its
+    data (a chain member pushed off a blended pair) has a Jacobian column
+    of ~0 at the plain version's solution, so the lane's cost does not
+    change in float32 wherever the feature stops, and the two versions
+    stop it where their roundings leave it.  Slots whose JᵀJ diagonal is
+    below 1e-12 of the lane's largest are held by the lane's cost (held on
+    every lane); the kernel's result gets the plain version's value there
+    for the position gate.  Returns that result and a note."""
+    import torch
+
+    from clustertracking_tpu_torch.ops.residual import make_model_fns
+
+    fns = make_model_fns(kw["model"], kw["layout"], kw["window_shape"],
+                         device=res_p.x.device)
+    _, J = fns.residual_jac(res_p.x, *args[1:6], args[7])
+    info = (J * J).sum(-1)
+    live = torch.zeros_like(info, dtype=torch.bool)   # live features' positions
+    layout, fvalid = kw["layout"], args[7]
+    for p in layout.pos_param_idx:
+        for i, v in enumerate(layout.slot_idx[:, p]):
+            live[:, int(v)] |= fvalid[:, i] > 0.5
+    free = live & (info < 1e-12 * info.amax(1, keepdim=True))
+    if not bool(free.any()):
+        return res_k, ""
+    d = (res_k.x - res_p.x).abs()[free]
+    note = (f"; {int(free.sum())} position slots on {int(free.any(1).sum())}"
+            f" lanes with no information (JᵀJ diagonal < 1e-12 of the "
+            f"lane's largest), held by cost: max |dpos| there "
+            f"{float(d.max()):.3e} px")
+    return res_k._replace(x=torch.where(free, res_p.x, res_k.x)), note
+
+
+def _mid_descent(res_k, res_p, args, kw, what):
+    """Lanes at a refit's short iteration budget (the recovery pass's 16)
+    stop mid-descent, where the cost reached depends on the path, and a
+    rounding-level difference in an early accept decision changes the
+    path: the plain version on the host and on the card disagree there by
+    more than 1e-3 on a few percent of the lanes.  Those lanes are held by
+    their summed cost, kernel against plain, within COST_RTOL; the per-lane
+    spreads of the kernel and of the host's plain version against the
+    card's are printed beside it.  Returns both results without those
+    lanes, and a note."""
+    import torch
+
+    from clustertracking_tpu_torch.ops.block_lm import block_lm_reference
+
+    mi = kw["max_iter"]
+    cap = (res_k.n_iter >= mi) | (res_p.n_iter >= mi)
+    host = block_lm_reference(
+        *[a.cpu() for a in args],
+        **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+    cp = res_p.cost[cap].double().cpu().numpy()
+    ck = res_k.cost[cap].double().cpu().numpy()
+    rel_k = np.abs(ck - cp) / np.maximum(cp, 1e-30)
+    rel_h = (np.abs(host.cost[cap.cpu()].double().numpy() - cp)
+             / np.maximum(cp, 1e-30))
+    sk, sp = float(ck.sum()), float(cp.sum())
+    note = (f"; {int(cap.sum())} lanes at the {mi}-iteration budget, "
+            f"mid-descent, held by their summed cost: kernel {sk:.6f}, "
+            f"plain {sp:.6f} (rel {abs(sk - sp) / sp:.3e}); lanes beyond "
+            f"{COST_RTOL:g} apart: kernel vs plain "
+            f"{int((rel_k > COST_RTOL).sum())} (max "
+            f"{float(rel_k.max(initial=0.0)):.3e}), plain on the host vs on "
+            f"the card {int((rel_h > COST_RTOL).sum())} (max "
+            f"{float(rel_h.max(initial=0.0)):.3e})")
+    check(abs(sk - sp) <= COST_RTOL * sp,
+          f"{what}: summed cost at the budget disagrees")
+    return _lanes(res_k, ~cap), _lanes(res_p, ~cap), note
+
+
+def _block_replay(first, what, smi, budget=False):
+    """``_block_cell`` on the first armed launch of a main path
+    (``_FirstBlock``)."""
+    check(first.args is not None, f"{what}: no block_lm launch to replay")
+    return _block_cell(first.args, first.kw, what, smi,
+                       "the path's first launch", budget)
+
+
+def _chain_bucket(n, B, device, seed=40):
+    """A synthetic bucket of B chains of n features as config 5 draws them
+    (2D isotropic Gaussians of size 1.6, signal 140 ± 10%, 4.5 px apart
+    along a walk that turns by up to ±0.4 rad a step, noise σ=2),
+    rendered by the model on 256×256 frames, the fit started 0.3 px and
+    15% off: ``block_lm``'s arguments as the bucket solver's first round
+    builds them, for diameter 9 and separation 6.  The last two lanes
+    are padding."""
+    import torch
+
+    from clustertracking_tpu_torch.models import build_layout, get_model
+    from clustertracking_tpu_torch.ops.gather import (
+        gather_stack, origins_for, radius_mask)
+    from clustertracking_tpu_torch.ops.residual import make_model_fns
+    from clustertracking_tpu_torch.refine import _slot_bounds, _window_shape
+
+    rng = np.random.default_rng(seed)
+    shape, radius = (256, 256), (LOC_DIAMETER / 2.0,) * 2
+    model = get_model("gauss")
+    layout = build_layout(model, 2, True, n)
+    names = layout.param_names
+    truth = np.zeros((B, n, layout.n_params), np.float32)
+    for b in range(B):
+        pos, ang, feats = np.zeros(2), rng.uniform(0, 2 * np.pi), []
+        for _ in range(n):
+            feats.append(pos.copy())
+            ang += rng.uniform(-0.4, 0.4)
+            pos = pos + 4.5 * np.array([np.sin(ang), np.cos(ang)])
+        feats = np.asarray(feats)
+        feats += np.asarray(shape, float) / 2 - feats.mean(0)
+        for i in range(n):
+            row = dict(background=0.0, size=LOC_SIZE, y=feats[i, 0],
+                       x=feats[i, 1], signal=140.0 * rng.uniform(0.9, 1.1))
+            truth[b, i] = [row[name] for name in names]
+    t = (lambda a: torch.as_tensor(a, device=device))
+    fvalid = torch.ones((B, n), device=device)
+    fns = make_model_fns(model, layout, shape, device=device)
+    frames = fns.image_from_params(
+        t(truth), torch.zeros((B, 2), dtype=torch.int32, device=device),
+        fvalid).reshape((B,) + shape)
+    frames = frames + t(rng.normal(0.0, LOC_NOISE, frames.shape)
+                        .astype(np.float32))
+    params = truth.copy()
+    pos_idx = list(layout.pos_param_idx)
+    params[..., pos_idx] += rng.uniform(-0.3, 0.3, (B, n, 2))
+    params[..., layout.signal_param_idx] *= rng.uniform(0.85, 1.15, (B, n))
+    params = t(params)
+    window = _window_shape(n, 2, radius, (float(LOC_SEPARATION),) * 2,
+                           shape)
+    pos_at = params[..., pos_idx].contiguous()
+    origin = origins_for(pos_at, window, shape)
+    fidx = torch.arange(B, dtype=torch.int32, device=device)
+    pixels = gather_stack(frames, fidx, origin, window)
+    mask = radius_mask(pos_at, origin, window, radius, fvalid=fvalid)
+    norm = torch.clamp(torch.amax(params[..., layout.signal_param_idx].abs(),
+                                  dim=1), min=1e-6)
+    valid = torch.ones(B, dtype=torch.bool, device=device)
+    valid[-2:] = False
+    lo, hi = _slot_bounds(layout, window, shape)
+    args = (layout.vect_from_params(params), params, pixels, mask, origin,
+            norm, valid, fvalid)
+    kw = dict(model=model, layout=layout, window_shape=window, lo=t(lo),
+              hi=t(hi), max_iter=60)
+    return args, kw
+
+
+def _block_path(first, n, stats, wall, what, smi):
+    """The block route's share of a track call: its launches, blocks a
+    launch, the cuda-block rate beside the fit's wall; no chain bucket on
+    lm_solve."""
+    tags = stats.summary_by_backend()
+    blk = tags.get("cuda-block", {})
+    print(f"[{what}] {smi}: block_lm launches {n['block_lm']} in the call "
+          f"(blocks a launch {min(first.lanes, default=0)}–"
+          f"{max(first.lanes, default=0)}, {sum(first.lanes)} in all); "
+          f"cuda-block {blk.get('n_clusters', 0)} clusters in "
+          f"{blk.get('wall_s', 0.0):.3f} s = "
+          f"{blk.get('clusters_per_sec', 0.0):.1f} clusters/s, "
+          f"{blk.get('wall_s', 0.0) / max(n['block_lm'], 1) * 1e3:.2f} ms "
+          f"a launch with its host work; fit_s "
+          f"{stats.ledger.get('fit_s')} of a {wall:.3f} s call",
+          flush=True)
+    check(n["block_lm"] > 0, f"{what} launched no block_lm")
+    check(not any(t.startswith("cuda-torch") for t in tags),
+          f"{what}: a bucket took lm_solve: {sorted(tags)}")
 
 
 def phase_train(device, smi):
@@ -2589,7 +2841,9 @@ def phase_track(frames, truth, device, smi):
 def phase_track5(frames, truth, device, smi):
     """Config 5 through track (benchmarks/suite.py::config5's kwargs):
     the binned auction, fused_lm_2d for the small clusters, window_gather
-    and lm_solve for the chains past the kernel's slots."""
+    and block_lm for the chains past the warp kernels' slots; then
+    block_lm on a synthetic bucket at the cap config 5 sets (n = 40,
+    V = 120), since its chains measured no larger than 20 features."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2603,7 +2857,7 @@ def phase_track5(frames, truth, device, smi):
     _reset_counts()
     t0 = time.perf_counter()
     with _FirstLaunch(rigid=False) as first, _FirstGather() as gathered, \
-            diagnostics.collect() as stats:
+            _FirstBlock() as block, diagnostics.collect() as stats:
         out = track(reader, device=device, **TRACK5_KW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2632,12 +2886,17 @@ def phase_track5(frames, truth, device, smi):
     check(n["fused_lm_2d"] > 0, "config 5 launched no fused_lm_2d")
     check(n["window_gather"] > 0, "config 5 launched no window_gather")
     check(err < TRACK5_ERR, f"config 5 median position error {err} px")
+    _block_path(block, n, stats, wall, "track5", smi)
     entry = _replay(first, "track5", smi, cap_by_cost=True)
     gather = _gather_replay(gathered, "track5", smi)
+    chains = _block_replay(block, "track5", smi)
+    args, kw = _chain_bucket(40, 32, device)
+    _block_cell(args, kw, "track5", smi, "a synthetic bucket at n = 40")
     print(f"[track5] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return (dict(launches=n["fused_lm_2d"], **entry),
-            dict(launches=n["window_gather"], **gather))
+            dict(launches=n["window_gather"], **gather),
+            dict(launches=n["block_lm"], **chains))
 
 
 def _recovery_score(out, truth, n_frames):
@@ -2936,7 +3195,7 @@ def phase_track5r(frames, truth, device, smi):
     _reset_counts()
     t0 = time.perf_counter()
     with _FirstLaunch(rigid=False) as first, _FirstGather() as gathered, \
-            _Refit(first, gathered) as refit, \
+            _FirstBlock() as block, _Refit(first, gathered, block) as refit, \
             diagnostics.collect() as stats:
         out = track(reader, device=device, **kw)
     torch.cuda.synchronize()
@@ -2969,12 +3228,15 @@ def phase_track5r(frames, truth, device, smi):
     check(cov >= TRACK5R_COVERAGE, f"config 5 coverage {cov}")
     check(ghosts <= TRACK5R_GHOSTS * n_out, f"config 5 ghosts {ghosts}")
     check(med <= TRACK5R_ERR, f"config 5 median error {med} px")
+    _block_path(block, n, stats, wall, "track5r", smi)
     entry = _replay(first, "track5r", smi, cap_by_cost=True)
     gather = _gather_replay(gathered, "track5r", smi)
+    chains = _block_replay(block, "track5r", smi, budget=True)
     print(f"[track5r] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return (dict(launches=n["fused_lm_2d"], **entry),
-            dict(launches=n["window_gather"], **gather))
+            dict(launches=n["window_gather"], **gather),
+            dict(launches=n["block_lm"], **chains))
 
 
 def phase_trace(frames, device, smi):
@@ -3537,13 +3799,13 @@ def main():
     _stamp("link")
     ktr = phase_track(frames, truth, device, smi)
     _stamp("track")
-    ktr5, gtr5 = phase_track5(c5_frames, c5_truth, device, smi)
+    ktr5, gtr5, btr5 = phase_track5(c5_frames, c5_truth, device, smi)
     _stamp("track5")
     phase_synth(c5_truth, device, smi)
     _stamp("synth")
     ktr_r = phase_track_r(frames, truth, device, smi)
     _stamp("track_r")
-    ktr5r, gtr5r = phase_track5r(c5_frames, c5_truth, device, smi)
+    ktr5r, gtr5r, btr5r = phase_track5r(c5_frames, c5_truth, device, smi)
     _stamp("track5r")
     phase_trace(frames, device, smi)
     _stamp("trace")
@@ -3632,6 +3894,14 @@ def main():
         name="window_gather [track5r, config 5 recovery refit]",
         route="cuda", source=src + "window_gather.cu",
         replaces="clustertracking_tpu/ops/pallas_gather.py:144", **gtr5r))
+    # config 5's chains: the reference solves them in XLA (its lm_solve,
+    # no Pallas kernel); launches counted over each whole track call
+    for what, entry in (("track5, config 5 chains", btr5),
+                        ("track5r, config 5 recovery refit", btr5r)):
+        kernels.append(dict(
+            name=f"block_lm [{what}]", route="cuda",
+            source=src + "block_lm.cu",
+            replaces="clustertracking_tpu/ops/lm.py:158", **entry))
     # the mesh: the first shard's launch of each kernel the sharded path
     # runs, launches counted over the phase's sharded runs
     for name, route, file, line in (

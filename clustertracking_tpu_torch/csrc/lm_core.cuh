@@ -85,7 +85,7 @@
 
 namespace lmcore {
 
-constexpr int kMaxSlots = 20;                        // V cap (V < 20 routed)
+constexpr int kMaxSlots = 20;                        // V cap; V >= 20: block_lm.cu
 constexpr int kMaxFeatures = 32;                     // n cap
 constexpr int kJStride = kMaxSlots + 1;              // J row + residual; odd
 constexpr int kJTileWords = 1152;                    // the J tile (RowLayout)

@@ -1,4 +1,5 @@
 """Device compute ops: residuals, LM solver, gather, the LM kernels."""
+from .block_lm import block_lm, block_lm_reference
 from .fused_lm import fused_lm_2d, fused_lm_2d_reference, kernel_route
 from .lm import LMResult, lm_solve, lm_solve_global
 from .pixel_lm import pixel_lm, pixel_lm_reference
@@ -8,6 +9,8 @@ from .window_gather import window_gather
 
 __all__ = [
     "LMResult",
+    "block_lm",
+    "block_lm_reference",
     "fused_lm_2d",
     "fused_lm_2d_reference",
     "kernel_route",

@@ -19,7 +19,9 @@ Levenberg–Marquardt solve in one launch.  Here:
   reference's ``pallas_available`` plus its ``fused_ok``: 'fused' for 2D
   windows that fit ``fused_lm_2d``'s shared memory, 'gathered'
   (``window_gather`` then ``pixel_lm``) for 3D windows and larger 2D ones,
-  None (``lm_solve``) for the rest.
+  'block' (``window_gather`` then ``ops/block_lm.py::block_lm``) for
+  unconstrained buckets of 20 slots or more, None (``lm_solve``) for the
+  rest.
 
 Both versions take the reference's ``solve_fused`` arguments::
 
@@ -42,6 +44,7 @@ import torch
 
 from ..models.packing import ParamLayout
 from ..models.registry import ModelSpec
+from .block_lm import BLOCK_MAX_FEATURES, BLOCK_MAX_SLOTS
 from .gather import gather_stack
 from .lm import LMResult
 from .pixel_lm import (
@@ -54,9 +57,11 @@ from .window_gather import check_tensor
 __all__ = ["check_kernel_args", "fused_lm_2d", "fused_lm_2d_reference",
            "kernel_mask", "kernel_route"]
 
-# Buckets with this many kernel slots or more are solved by lm_solve: the
-# reference's routing threshold (pallas_lm.py:235; still to be re-measured
-# on the H100), and csrc/lm_core.cuh's kMaxSlots.
+# Buckets with this many kernel slots or more leave the warp kernels
+# (csrc/lm_core.cuh's kMaxSlots) for the block kernel, csrc/block_lm.cu, up
+# to its BLOCK_MAX_SLOTS; past that, or constrained, they take lm_solve.
+# The threshold is the reference's MXU crossover (pallas_lm.py:235), not
+# yet re-measured between the warp and the block kernels on the H100.
 _KERNEL_MAX_SLOTS = 20
 # Largest window, in pixels, the reference's kernels take (its streaming
 # cap, pallas_lm.py:148).
@@ -73,21 +78,26 @@ def fused_max_pixels(profile=0, pose=0):
 
 def kernel_route(model: ModelSpec, layout: ParamLayout, use_global: bool,
                  constraint, window_shape):
-    """The kernel route of a bucket configuration: 'fused', 'gathered' or
-    None (``lm_solve``).
+    """The kernel route of a bucket configuration: 'fused', 'gathered',
+    'block' or None (``lm_solve``).
 
-    The reference's ``pallas_available`` decides kernel or not:
+    The reference's ``pallas_available`` decides warp kernel or not:
     cross-lane-tied 'global' slots, zero-slot layouts, buckets at or past
     ``_KERNEL_MAX_SLOTS`` kernel slots (a rigid bucket's compact length)
-    and windows past ``_MAX_WINDOW_PIXELS`` go to ``lm_solve``, and so do
-    generic (penalty) constraints and rigid ones the kernels do not inline
-    (a globally tied distance, positions not all fitted).  One route is
-    the port's own: a custom model (``profile_tag`` None) is a Python
-    callable no CUDA kernel can evaluate, so its buckets take ``lm_solve``
-    — a static choice made before any launch, not a fallback.  Its
-    ``fused_ok`` decides which kernel: 2D windows within
-    ``fused_max_pixels`` are fused, 3D windows and larger 2D ones are
-    gathered (a rigid 2D bucket too large to fuse takes ``lm_solve``)."""
+    and windows past ``_MAX_WINDOW_PIXELS`` leave the warp kernels, and
+    so do generic (penalty) constraints and rigid ones the kernels do not
+    inline (a globally tied distance, positions not all fitted).  Its
+    ``fused_ok`` decides which: 2D windows within ``fused_max_pixels``
+    are fused, 3D windows and larger 2D ones are gathered (a rigid 2D
+    bucket too large to fuse takes ``lm_solve``).  Where the reference
+    takes XLA's ``lm_solve`` for an unconstrained bucket of
+    ``_KERNEL_MAX_SLOTS`` to ``BLOCK_MAX_SLOTS`` slots and at most
+    ``BLOCK_MAX_FEATURES`` features (config 5's chains), the port takes
+    'block': ``window_gather``, then ``csrc/block_lm.cu``.  Tied and
+    constrained buckets of that size, and larger ones, take ``lm_solve``.
+    A custom model (``profile_tag`` None) is a Python callable no CUDA
+    kernel can evaluate, so its buckets take ``lm_solve``.  Every choice
+    is static, made before any launch, not a fallback."""
     if use_global:
         return None
     prof = profile_tag(model)
@@ -98,10 +108,13 @@ def kernel_route(model: ModelSpec, layout: ParamLayout, use_global: bool,
         if not rigid_supported(layout, constraint):
             return None
         n_slots = len(rigid_kernel_slots(layout, constraint)[1])
-    if not 0 < n_slots < _KERNEL_MAX_SLOTS:
-        return None
     npix = int(np.prod(window_shape))
-    if npix > _MAX_WINDOW_PIXELS:
+    if n_slots < 1 or npix > _MAX_WINDOW_PIXELS:
+        return None
+    if n_slots >= _KERNEL_MAX_SLOTS:
+        if (constraint is None and n_slots <= BLOCK_MAX_SLOTS
+                and layout.n_features <= BLOCK_MAX_FEATURES):
+            return "block"
         return None
     if len(window_shape) == 2:
         if npix <= fused_max_pixels(prof, pose_kind(layout, constraint)):

@@ -10,7 +10,9 @@ cluster of the bucket together:
   ``ops/fused_lm.py::kernel_route`` names: 'fused' (2D windows,
   ``csrc/fused_lm_2d.cu``), 'gathered' (3D and large 2D windows,
   ``csrc/window_gather.cu`` then ``csrc/pixel_lm.cu``, once per refit
-  round) or none (``ops/lm.py::lm_solve``);
+  round), 'block' (unconstrained buckets of 20 slots or more, such as
+  config 5's chains: ``csrc/window_gather.cu`` then
+  ``csrc/block_lm.cu``) or none (``ops/lm.py::lm_solve``);
 - constrained buckets (``constraints=``) fit a rigid pose exactly
   (``ops/rigid.py``; on CUDA through the rigid instantiations of the same
   kernels) or, for reference-style dicts, the free positions with
@@ -56,7 +58,10 @@ from .find import find_clusters
 from .models.packing import build_layout
 from .models.registry import ModelSpec, get_model
 from .ops.collectives import Mesh, join_lanes, split_lanes
-from .ops.fused_lm import fused_lm_2d, kernel_route
+from .ops.block_lm import (
+    BLOCK_MAX_FEATURES, BLOCK_MAX_SLOTS, block_lm, block_lm_reference)
+from .ops.fused_lm import (
+    _KERNEL_MAX_SLOTS, _MAX_WINDOW_PIXELS, fused_lm_2d, kernel_route)
 from .ops.gather import gather_stack, origins_for, radius_mask
 from .ops.lm import GlobalShard, lm_solve, lm_solve_global_shards
 from .ops.pixel_lm import pixel_lm
@@ -77,7 +82,8 @@ _GATHER_BACKENDS = ("auto", "torch")
 
 
 def _route_taken(lm_backend, route, device):
-    """The route a bucket's solve takes: 'fused', 'gathered' or 'torch'.
+    """The route a bucket's solve takes: 'fused', 'gathered', 'block' or
+    'torch'.
 
     'auto' takes the bucket's kernel route (``kernel_route``) on CUDA;
     'kernel' forces it (its plain versions on CPU); 'torch' forces
@@ -210,9 +216,13 @@ def _shard_solver(
     if lm_backend == "kernel" and route is None:
         raise ValueError(
             "lm_backend='kernel' unsupported for this configuration "
-            f"(V={layout.n_slots} slots, window {window_shape}, "
+            f"(V={layout.n_slots} slots, n={n}, window {window_shape}, "
             f"constraint {getattr(constraint, 'name', None)!r}, "
-            f"global-tied slots {use_global})"
+            f"global-tied slots {use_global}): the kernels take no tied "
+            "slot, no custom model, no window past "
+            f"{_MAX_WINDOW_PIXELS} pixels, no constrained bucket of "
+            f"{_KERNEL_MAX_SLOTS} kernel slots or more and no bucket past "
+            f"{BLOCK_MAX_SLOTS} slots or {BLOCK_MAX_FEATURES} features"
         )
     if use_global:
         # the slots tied across lanes, over the solve's vector: a rigid
@@ -297,12 +307,23 @@ def _shard_solver(
             pixels = gather(frames, frame_idx, origin, window_shape)
             mask = radius_mask(pos_at, origin, window_shape, radius,
                                fvalid=sh.fvalid)
-            res = lm_solve(
-                sh.residual, sh.residual_jac, vect,
-                (params0, pixels, mask, origin, sh.norm) + sh.fv_extra,
-                max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
-                lower=sh.lo_b, upper=sh.hi_b, valid=need,
-            )._replace(npix=mask.sum(dim=1))
+            if sh.taken == "block" or constraint is None:
+                # the block kernel, or its plain version: the same
+                # lm_solve call on every device
+                solve = (block_lm if sh.taken == "block"
+                         else block_lm_reference)
+                res = solve(vect, params0, pixels, mask, origin, sh.norm,
+                            need, sh.fvalid, model=model, layout=layout,
+                            window_shape=window_shape, lo=sh.lo_b,
+                            hi=sh.hi_b, max_iter=lm_max_iter, ftol=ftol,
+                            xtol=xtol)
+            else:
+                res = lm_solve(
+                    sh.residual, sh.residual_jac, vect,
+                    (params0, pixels, mask, origin, sh.norm),
+                    max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
+                    lower=sh.lo_b, upper=sh.hi_b, valid=need,
+                )._replace(npix=mask.sum(dim=1))
         return res, pos_at
 
     def tied_round(shs, vects, needs):
@@ -490,8 +511,9 @@ def _mesh_bucket_solver(mesh, model, ndim, isotropic, n, param_mode_key,
 
 def _backend_tag(lm_backend, route, use_global, constraint, device):
     """A dispatch's ``diagnostics`` tag: the device type, the route taken
-    (``fused``, ``gathered``, ``torch``), ``-rigid`` / ``-penalty`` for a
-    constrained bucket and ``-global`` for a tied one."""
+    (``fused``, ``gathered``, ``block``, ``torch``), ``-rigid`` /
+    ``-penalty`` for a constrained bucket and ``-global`` for a tied
+    one."""
     kind = "" if constraint is None else (
         "-rigid" if constraint.kind == "rigid" else "-penalty")
     kind += "-global" if use_global else ""
@@ -704,9 +726,12 @@ def refine_leastsq(
 
     ``lm_backend``: 'auto' (on CUDA, each bucket's kernel route:
     ``fused_lm_2d`` for 2D windows, ``window_gather`` then ``pixel_lm``
-    for 3D and large 2D ones), 'kernel' (force the kernel route; its plain
-    versions on CPU) or 'torch' (``lm_solve``).  Dispatches of constrained
-    buckets are tagged with their kind: ``cuda-fused-rigid``,
+    for 3D and large 2D ones, ``window_gather`` then ``block_lm`` for
+    unconstrained buckets of 20 slots or more), 'kernel' (force the
+    kernel route; its plain versions on CPU) or 'torch' (``lm_solve``).
+    Dispatches are tagged by route (``cuda-fused``, ``cuda-gathered``,
+    ``cuda-block``, ``cuda-torch``), those of constrained buckets with
+    their kind too: ``cuda-fused-rigid``,
     ``cuda-torch-penalty``, ...; buckets with slots tied across lanes
     (``lm_solve_global``) add ``-global``: ``cuda-torch-global``,
     ``cuda-torch-rigid-global``.

@@ -194,8 +194,12 @@ def test_wrapper_refuses_other_devices():
 @pytest.mark.parametrize("n,modes,use_global,window,expect", [
     (2, {}, False, (13, 13), "fused"),
     (6, {}, False, (24, 24), "fused"),               # V = 18
-    (8, {}, False, (32, 32), None),                  # V = 24 >= 20
+    (8, {}, False, (32, 32), "block"),               # V = 24 >= 20
+    (40, {}, False, (228, 228), "block"),            # V = 120: config 5's
+    (43, {}, False, (228, 228), None),               # V = 129: past the cap
+    (8, {}, False, (600, 600), None),                # past the window cap
     (2, {}, True, (13, 13), None),                   # global-tied slots
+    (8, {}, True, (32, 32), None),                   # tied, V = 24
     (2, {}, False, (600, 600), None),                # past the window cap
     (2, {"signal": "const", "y": "const", "x": "const"}, False, (13, 13),
      None),                                          # nothing to fit
@@ -472,7 +476,7 @@ def test_refine_leastsq_kernel_route_matches_plain_route_on_the_card(
     lm_solve ('torch'): clusters of 1, 2, 3 and 5 features, so ladder
     buckets carry inert pad features (n=5 → 6) through the kernel's fvalid
     gating, with cluster-shared sizes.  Anisotropic, the n=6 bucket has
-    V = 20 slots and is routed to lm_solve."""
+    V = 20 slots and is routed to the block kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import pandas as pd
@@ -498,7 +502,7 @@ def test_refine_leastsq_kernel_route_matches_plain_route_on_the_card(
         kw = dict(param_mode={"size": "cluster"}, param_val={"size": 2.2})
     else:
         size_cols, routes = ["size_y", "size_x"], {"cuda-fused",
-                                                   "cuda-torch"}
+                                                   "cuda-block"}
         f["size_y"], f["size_x"] = 2.2, 2.2
         kw = dict(param_mode={"size_y": "cluster", "size_x": "cluster"})
     kw.update(diameter=9, separation=5.5, device="cuda")

@@ -161,6 +161,7 @@ def test_fused_reference_is_gather_then_pixel_reference():
     (2, (156, 156), {}, "fused"),             # 24,336 px: still fits
     (2, (161, 161), {}, "gathered"),          # past fused_lm_2d's cap
     (3, WINDOW_3D, dict(MODES_3D), "gathered"),   # config 4 (V = 14)
+    (3, (21, 23, 23), dict(MODES_3D), "block"),   # a free trimer: V = 21
     (3, (5, 9, 9), {}, "gathered"),           # 3D isotropic
     (3, (80, 80, 80), {}, None),              # past the window cap
 ])
@@ -169,7 +170,8 @@ def test_kernel_route_names_the_route(ndim, window, modes, expect):
     every 2D window past fused_lm_2d's shared memory used to reach the
     fused kernel and raise on CUDA; they route to the gathered kernels."""
     isotropic = not modes
-    lay = build_layout(get_model("gauss"), ndim, isotropic, 2, modes)
+    n = 3 if expect == "block" else 2
+    lay = build_layout(get_model("gauss"), ndim, isotropic, n, modes)
     assert kernel_route(get_model("gauss"), lay, False, None,
                         window) == expect
 

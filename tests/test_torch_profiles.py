@@ -193,18 +193,25 @@ def _custom():
 @pytest.mark.parametrize("ndim,window", [(2, (13, 13)), (3, (7, 9, 9))])
 def test_custom_models_route_to_lm_solve(ndim, window):
     """A custom model is a Python callable: kernel_route sends its buckets
-    to lm_solve (a static route), the built-ins to their kernels."""
+    to lm_solve (a static route), the built-ins to their kernels, and
+    buckets of 20 slots or more (n = 8) to the block kernel: it takes
+    every built-in profile."""
     for name in ("ring", "hat", "disc"):
         lay = build_layout(get_model(name), ndim, True, 2, {})
         assert kernel_route(get_model(name), lay, False, None, window) == (
             "fused" if ndim == 2 else "gathered")
-    lay = build_layout(get_model("inv_series_2"), ndim, True, 2,
-                       {"coeff_1": "var", "coeff_2": "cluster"})
-    assert kernel_route(get_model("inv_series_2"), lay, False, None,
-                        window) is not None
+        lay = build_layout(get_model(name), ndim, True, 8, {})
+        assert kernel_route(get_model(name), lay, False, None,
+                            window) == "block"
+    for n in (2, 8):
+        lay = build_layout(get_model("inv_series_2"), ndim, True, n,
+                           {"coeff_1": "var", "coeff_2": "cluster"})
+        assert kernel_route(get_model("inv_series_2"), lay, False, None,
+                            window) is not None
     model = _custom()
-    lay = build_layout(model, ndim, True, 2, {})
-    assert kernel_route(model, lay, False, None, window) is None
+    for n in (2, 8):
+        lay = build_layout(model, ndim, True, n, {})
+        assert kernel_route(model, lay, False, None, window) is None
 
 
 def test_custom_model_refine_takes_lm_solve():
