@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --gauss-kernels DIR [--save FILE]
     python3 chip_smoke.py --gather-kernels DIR
+    python3 chip_smoke.py --block-kernels DIR [--save FILE]
     python3 chip_smoke.py --compare-saved FILE_A FILE_B
 
 ``--gauss-kernels`` times the gauss LM kernels of the port found under DIR
@@ -12,7 +13,10 @@
 share of lanes on which two such files agree bit for bit.
 ``--gather-kernels`` times the window gather found under DIR at config 4,
 B=2,048 and 16,384 (kernel alone with L2 flushed, per call, host time per
-call).
+call).  ``--block-kernels`` times the block LM kernel found under DIR on
+three chain buckets (n = 8, 16 and 40; B = 256, 128 and 32; kernel alone
+with L2 flushed, per call, registers, blocks per SM); ``--save`` as
+above.
 
 Drives the port (``clustertracking_tpu_torch``; no JAX) through its main
 paths, the bucketed cluster fit and the pipelines around it, at the
@@ -735,11 +739,14 @@ def _flush_l2():
     buf.sum()
 
 
-def _kernel_alone_ms(fn, reps, cold=True):
+def _kernel_alone_ms(fn, reps, cold=True, name=None):
     """``fn``'s own device time per call by torch.profiler (every kernel
     and copy it runs but the flush's reduction and memset), with L2
-    flushed before each call when ``cold``."""
+    flushed before each call when ``cold``.  With ``name``: the mean time
+    of the kernels whose name holds it, one a call (a profile of long
+    launches can miss some of them)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _flush_l2()
@@ -753,8 +760,14 @@ def _kernel_alone_ms(fn, reps, cold=True):
                     _flush_l2()
                 fn()
             torch.cuda.synchronize()
-        ms = sum(v for k, v in _device_ms(prof).items()
-                 if "reduce_kernel" not in k and "Memset" not in k) / reps
+        if name is not None:
+            got = [e.duration_ns() / 1e6
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and name in e.name()]
+            ms = sum(got) / len(got) if got else 0.0
+        else:
+            ms = sum(v for k, v in _device_ms(prof).items()
+                     if "reduce_kernel" not in k and "Memset" not in k) / reps
         if ms > 0:
             return ms
     check(False, "three profiles recorded no device time")
@@ -2106,7 +2119,8 @@ def _block_cell(args, kw, what, smi, label, budget=False):
     import torch
 
     from clustertracking_tpu_torch.ops.block_lm import (
-        block_lm, block_lm_reference)
+        block_lm, block_lm_reference, blocks_per_sm)
+    from clustertracking_tpu_torch.ops.pixel_lm import profile_tag
 
     layout = kw["layout"]
     pos = sorted({int(s) for p in layout.pos_param_idx
@@ -2122,12 +2136,17 @@ def _block_cell(args, kw, what, smi, label, budget=False):
         extra += f"{more}, max |dpos| of all lanes {max_err:.3e} px"
     a, note, _, res_k = _held(res_k, res_p, kw, pos, what, not budget)
     ms = _cuda_ms(lambda: block_lm(*args, **kw), 5)
+    alone = _kernel_alone_ms(lambda: block_lm(*args, **kw), 5,
+                             name="block_lm_kernel")
+    per_sm = blocks_per_sm(len(kw["window_shape"]), profile_tag(kw["model"]),
+                           layout.n_slots, layout.n_features)
     print(f"[{what}] {smi}: block_lm vs plain on {label} (B={len(args[0])}"
-          f" blocks, n={layout.n_features}, V={layout.n_slots}, "
-          f"{len(res_k.cost)} lanes under every gate, window "
-          f"{kw['window_shape']}, mean in-mask npix "
+          f" blocks, {per_sm} an SM, n={layout.n_features}, "
+          f"V={layout.n_slots}, {len(res_k.cost)} lanes under every gate, "
+          f"window {kw['window_shape']}, mean in-mask npix "
           f"{float(args[3].sum(1).mean()):.0f}): {_fmt(a)}{note}{extra}; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{ms:.3f} ms per call, {alone:.3f} ms alone with L2 flushed, "
+          f"plain {plain_ms:.3f} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; time over "
           f"bound {ms / bound['bound_ms']:.1f}x)", flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **bound,
@@ -3949,11 +3968,19 @@ def _warps_by_registers(regs, warps_per_block=1):
     """Warps per SM that a kernel's registers allow.  Each of an SM's four
     partitions has 16,384 registers, handed out per warp in units of 256;
     a block's warps share a partition only when it has one warp, as the LM
-    kernels' blocks do (at most 32 blocks per SM)."""
+    kernels' blocks do (at most 32 blocks per SM).  A block of several
+    warps runs whole or not at all, so they count in whole blocks."""
     per_warp = 32 * (-(-regs // 8) * 8)
     if warps_per_block == 1:
         return min(32, 4 * (16384 // per_warp))
-    return min(64, 65536 // per_warp)
+    return min(64, 65536 // (warps_per_block * per_warp) * warps_per_block)
+
+
+def _blocks_by_resources(regs, smem_bytes, warps_per_block=8):
+    """Blocks per SM that a multi-warp kernel's registers and dynamic shared
+    memory allow on an H100 (228 KB a SM, 1 KB of it reserved a block)."""
+    by_regs = _warps_by_registers(regs, warps_per_block) // warps_per_block
+    return min(by_regs, (228 << 10) // (smem_bytes + 1024))
 
 
 def gauss_kernels(root, save=None):
@@ -4099,6 +4126,97 @@ def gather_kernels(root):
           f"{regs}", flush=True)
 
 
+BLOCK_SHAPES = (("chain8", 8, 256), ("chain16", 16, 128),
+                ("chain40", 40, 32))   # name, n, B
+
+
+def block_kernels(root, save=None):
+    """The block LM kernel of the port found under ``root`` (this checkout,
+    or another one such as the parent commit's), timed on one card on the
+    synthetic chain buckets of BLOCK_SHAPES (``_chain_bucket``): n = 8,
+    V = 24, B = 256 as config 5's first chain launch, n = 16, V = 48,
+    B = 128, and n = 40, V = 120, B = 32, config 5's cap.  Kernel alone
+    (torch.profiler, L2 flushed before each launch) and per call, held
+    against the plain version, beside the bound, with the kernel's
+    registers, spills and blocks per SM; where the kernel reports its SM
+    clocks (``block_lm_clocks``), the share of its cycles in the pixel
+    rows, the sums and the Cholesky solves.  ``save`` keeps each bucket's
+    per-lane x, cost, n_iter and npix for ``--compare-saved``.  One line
+    per bucket; run two checkouts in turns to compare them."""
+    import importlib
+
+    sys.path.insert(0, root)
+    import torch
+
+    from clustertracking_tpu_torch.ops import _build
+    from clustertracking_tpu_torch.ops.pixel_lm import profile_tag
+
+    bl = importlib.import_module("clustertracking_tpu_torch.ops.block_lm")
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    _build._lib_path("block_lm").unlink(missing_ok=True)   # nvcc's report
+    t0 = time.perf_counter()
+    _build.build_kernels(("block_lm",))
+    build_s = time.perf_counter() - t0
+    regs = {",".join(_template_args(e)): (r, b) for e, r, b in
+            _ptxas_entries(_build.build_log("block_lm")[1])}
+    kept = {}
+    for name, n, B in BLOCK_SHAPES:
+        args, kw = _chain_bucket(n, B, "cuda")
+        layout = kw["layout"]
+        pos = sorted({int(s) for p in layout.pos_param_idx
+                      for s in layout.slot_idx[:, p]})
+        res = bl.block_lm(*args, **kw)
+        torch.cuda.synchronize()
+        ref = bl.block_lm_reference(*args, **kw)   # reported, not gated:
+        a = dict(                                  # _block_cell gates
+            pos=float((res.x[:, pos] - ref.x[:, pos]).abs().max()),
+            conv=float((res.converged == ref.converged).float().mean()),
+            iters=float((res.n_iter == ref.n_iter).float().mean()))
+        alone = _kernel_alone_ms(lambda: bl.block_lm(*args, **kw), 10,
+                                 name="block_lm_kernel")
+        per_call = _cuda_ms(lambda: bl.block_lm(*args, **kw), 10)
+        bound = _lm_bound(res, args, kw)["bound_ms"]
+        D, prof = len(kw["window_shape"]), profile_tag(kw["model"])
+        r, spill = regs[f"{D},{prof}"]
+        smem = 4 * bl.smem_words(D, prof, layout.n_slots, n)
+        per_sm = (bl.blocks_per_sm(D, prof, layout.n_slots, n)
+                  if hasattr(bl, "blocks_per_sm")
+                  else _blocks_by_resources(r, smem))
+        clocks = ""
+        if hasattr(bl, "block_lm_clocks"):
+            res_c, clk = bl.block_lm_clocks(*args, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(res_c.x, res.x), f"{name}: clocked run differs")
+            c = clk.double().cpu().numpy()
+            it = res.n_iter.double().cpu().numpy() + 1
+            slow = int(c[:, 0].argmax())
+            tot = c.sum(0)
+            clocks = (f"; SM cycles in sweeps {tot[1] / tot[0]:.3f} (rows "
+                      f"{tot[3] / tot[0]:.3f}, sums {tot[4] / tot[0]:.3f}, "
+                      f"rounding {tot[5] / tot[0]:.3f}), in Cholesky solves "
+                      f"{tot[2] / tot[0]:.3f} of all; per sweep "
+                      f"{tot[1] / it.sum():.0f} (rows {tot[3] / it.sum():.0f}"
+                      f", sums {tot[4] / it.sum():.0f}), per solve "
+                      f"{tot[2] / max(it.sum() - len(it), 1):.0f}; slowest "
+                      f"block {c[slow, 0]:.0f} cycles, {int(it[slow]) - 1} "
+                      f"iterations")
+        for f in ("x", "cost", "n_iter", "npix"):
+            kept[f"{name}/{f}"] = getattr(res, f).cpu().numpy()
+        print(f"[block_kernels] {root}: {name} (n={n}, V={layout.n_slots}, "
+              f"B={B}, window {kw['window_shape']}, mean in-mask npix "
+              f"{float(args[3].sum(1).mean()):.1f}): kernel alone "
+              f"{alone:.4f} ms, per call {per_call:.4f} ms, bound "
+              f"{bound:.4f} ms ({alone / bound:.1f}x); {r} registers, "
+              f"{spill} bytes spilled, {smem} bytes shared, {per_sm} blocks "
+              f"an SM; vs plain max |dpos| {a['pos']:.3e}, converged equal "
+              f"{a['conv']:.5f}, n_iter equal {a['iters']:.5f}, mean n_iter "
+              f"{float(res.n_iter.float().mean()):.2f}{clocks}", flush=True)
+    print(f"[block_kernels] {root}: build {build_s:.1f} s", flush=True)
+    if save:
+        np.savez(save, **kept)
+
+
 def compare_saved(file_a, file_b):
     """Share of lanes on which two ``--save`` files agree bit for bit, per
     kernel: x, cost and n_iter together, and npix."""
@@ -4122,6 +4240,10 @@ if __name__ == "__main__":
         rest = sys.argv[2:]
         save = rest[rest.index("--save") + 1] if "--save" in rest else None
         gauss_kernels(rest[0] if rest and rest[0] != "--save" else ".", save)
+    elif sys.argv[1:2] == ["--block-kernels"]:
+        rest = sys.argv[2:]
+        save = rest[rest.index("--save") + 1] if "--save" in rest else None
+        block_kernels(rest[0] if rest and rest[0] != "--save" else ".", save)
     elif sys.argv[1:2] == ["--gather-kernels"]:
         gather_kernels(sys.argv[2] if len(sys.argv) > 2 else ".")
     elif sys.argv[1:2] == ["--compare-saved"]:

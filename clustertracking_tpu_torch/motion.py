@@ -1,7 +1,8 @@
 """Cluster kinematics: orientation, body-frame displacements, diffusion.
 
 A copy of ``clustertracking_tpu/motion.py`` (numpy; pandas imported by the
-functions that build DataFrames), held to it bit for bit.  It implements
+functions that build DataFrames), held to it bit for bit, but for one
+fault it repairs (``_SAME_MEMBERS``).  It implements
 the paper's analysis (van der Wel & Kraft 2016, arXiv:1607.08819):
 per-frame rigid-cluster orientation from member positions, displacement
 decomposition into body-frame translation + rotation, and short-time
@@ -10,7 +11,7 @@ displacements.
 
 Workflow: after refine + link, each cluster member carries a ``particle``
 trajectory id.  ``cluster_trajectories`` groups members into persistent
-clusters (by majority member overlap frame to frame), producing one row
+clusters (by their member sets frame to frame), producing one row
 per (cluster, frame) with center and orientation;
 ``diffusion_constants`` estimates D_trans (lab and body frame) and D_rot
 from lag-1..max MSDs.
@@ -38,6 +39,16 @@ __all__ = [
     "diffusion_constants",
 ]
 
+# A cluster trajectory continues only while its member set stays the same:
+# a merge with a neighbouring cluster (find_clusters joins two dimers that
+# come within the separation), a split, or a member relinked under a new
+# particle id starts a new one, since the changed set's centre and
+# orientation (centre → lowest particle id) are not the old body's.  False
+# continues through any change that keeps at least half the members, as
+# the reference does, for comparisons with it: on config 2's video its
+# merged dimers read D_rot at ~3× the drawn value.
+_SAME_MEMBERS = True
+
 
 def orientation(positions: np.ndarray) -> float:
     """Orientation angle (2D) of a rigid cluster from member positions.
@@ -59,14 +70,13 @@ def cluster_trajectories(
 ) -> pd.DataFrame:
     """One row per (cluster instance, frame): center, orientation, size.
 
-    Cluster-trajectory identity (``cluster_traj``) is assigned by
-    MAJORITY MEMBER OVERLAP frame-to-frame: a cluster continues the
-    trajectory whose most recent member set shares more than half its
-    members (VERDICT r2 item 9 — the previous exact-member-tuple id
-    split a trajectory whenever a single member mislinked for one
-    frame, silently shortening MSD baselines).  Perfectly linked input
-    gives identical ids to exact-tuple matching.  ``max_gap`` frames of
-    absence are tolerated before a trajectory retires."""
+    Cluster-trajectory identity (``cluster_traj``): a cluster continues
+    the trajectory whose most recent member set is its own
+    (``_SAME_MEMBERS``; the reference, and ``_SAME_MEMBERS = False``,
+    continue by MAJORITY MEMBER OVERLAP: the trajectory whose most recent
+    member set shares at least half its members).  Perfectly linked
+    input gives the same ids either way.  ``max_gap`` frames of absence
+    are tolerated before a trajectory retires."""
     import pandas as pd
 
     if pos_columns is None:
@@ -113,9 +123,13 @@ def cluster_trajectories(
             mem = set(out.at[row, "members"])
             for tid, st in active.items():
                 ov = len(mem & st["members"])
-                # at least half the members persist (>= so a dimer with
-                # one relinked member still continues its trajectory)
-                if ov and 2 * ov >= max(len(mem), len(st["members"])):
+                if _SAME_MEMBERS:
+                    keep = mem == st["members"]
+                else:
+                    # at least half the members persist (>= so a dimer
+                    # with one relinked member still continues)
+                    keep = ov and 2 * ov >= max(len(mem), len(st["members"]))
+                if keep:
                     cands.append((-ov, tid, row))
         cands.sort()
         used_t: set = set()

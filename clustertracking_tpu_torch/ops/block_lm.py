@@ -44,28 +44,41 @@ from .residual import make_model_fns
 from .window_gather import check_tensor
 
 __all__ = ["BLOCK_MAX_FEATURES", "BLOCK_MAX_SLOTS", "block_lm",
-           "block_lm_reference", "check_block_lm_args", "smem_words"]
+           "block_lm_clocks", "block_lm_reference", "blocks_per_sm",
+           "check_block_lm_args", "smem_words"]
 
-# Caps of csrc/block_lm.cu (kBlockMaxSlots, kBlockMaxFeatures): a block's
-# shared memory holds the sums of V = 128 slots twice and a tile of 256
-# pixel rows beside them.
+# Caps of csrc/block_lm.cu (kBlockMaxSlots, kBlockMaxFeatures): at V = 128
+# and n = 64 one block's shared memory (the FP64 tile sums, a 128-row z
+# tile and the items of two sweeps) still fits the 227 KB a block can have.
 BLOCK_MAX_SLOTS = 128
 BLOCK_MAX_FEATURES = 64
-_THREADS = 256          # kThreads: threads a block, pixel rows a chunk
-_MISC_WORDS = 4 + _THREADS // 32
+_WARPS = 8              # kWarps: 256 threads a block
+_PANEL = 4              # kPanel: 8-column blocks of zᵀz a panel
+_MISC_WORDS = 4 + _WARPS
 
 
 def smem_words(D, prof, V, n):
     """Shared memory of one block of ``csrc/block_lm.cu``, in 4-byte words
-    (``block_lm_smem_words``): the pixel tile (which holds the factor
-    during the solve), the two sweep sums, four slot vectors, the feature
+    (``block_lm_smem_words``): the FP64 sums of each pixel slice's 8×8
+    tiles, eight clocks, the FP64 reciprocals of the feature sizes, the
+    column-major z tile of R pixel rows (which
+    holds the factor during the solve), the two sweeps' items, four slot
+    vectors, the list of the columns a pixel row zeroes, the feature
     parameters and slots."""
     K = V + 1
-    kp = 4 * ((K + 3) // 4)
+    nb = -(-K // 8)
+    kpad = 8 * nb
+    panels = -(-nb // _PANEL)
+    jobs = panels * panels
+    slices = 1 if jobs >= _WARPS else _WARPS // jobs
+    rows = 256 if kpad <= 32 else 192 if kpad <= 72 else 128
+    tiles = nb * (nb + 1) // 2
+    items = K * (K + 1) // 2
     nx = _staged_extras(prof)
     feat_f, feat_i = 2 + 2 * D + nx, 2 + 2 * D + nx
-    return (_THREADS * kp + K * (K + 1) + 4 * kp + n * (feat_f + feat_i)
-            + _MISC_WORDS)
+    return (slices * tiles * 128 + 16 + 2 * D * n
+            + max(kpad * (rows + 4), K * (K | 1))
+            + 2 * items + 5 * kpad + n * (feat_f + feat_i) + _MISC_WORDS)
 
 
 def block_lm_reference(vect0, const_params, pixels, mask, origin, norm,
@@ -108,6 +121,10 @@ def check_block_lm_args(vect0, const_params, pixels, mask, origin, norm,
     if D not in (2, 3) or layout.ndim != D:
         raise ValueError(f"{who}: a {layout.ndim}D layout on window "
                          f"{tuple(window_shape)}")
+    limits = (32767, 65535) if D == 2 else (2047, 1023, 1023)
+    if any(w > lim for w, lim in zip(window_shape, limits)):
+        raise ValueError(f"{who}: window {tuple(window_shape)} past the "
+                         f"kernel's packed pixel offsets {limits}")
     if tuple(layout.param_names) != tuple(
             param_names_for(model, D, layout.isotropic)):
         raise ValueError(f"{who}: unexpected parameter layout")
@@ -143,6 +160,7 @@ _ARGTYPES = (
     + [ctypes.c_float] * 7          # ftol .. plateau
     + [ctypes.c_int] * 2            # prof, nx
     + [ctypes.c_void_p] * 4         # outputs
+    + [ctypes.c_void_p]             # clocks (or null)
     + [ctypes.c_void_p]             # stream
 )
 
@@ -156,6 +174,8 @@ def _library():
         lib.block_lm_launch.restype = ctypes.c_int
         lib.block_lm_smem_words.argtypes = [ctypes.c_int] * 4
         lib.block_lm_smem_words.restype = ctypes.c_int
+        lib.block_lm_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.block_lm_blocks_per_sm.restype = ctypes.c_int
         for D in (2, 3):
             for prof in range(5):
                 for V, n in ((20, 4), (61, 20), (128, 64)):
@@ -181,10 +201,41 @@ def block_lm(vect0, const_params, pixels, mask, origin, norm, valid,
     kw = dict(model=model, layout=layout, window_shape=window_shape, lo=lo,
               hi=hi, max_iter=max_iter, ftol=ftol, xtol=xtol, lam0=lam0,
               lam_up=lam_up, lam_down=lam_down, lam_max=lam_max)
-    device = pixels.device
-    if device.type == "cpu":
+    if pixels.device.type == "cpu":
         return block_lm_reference(vect0, const_params, pixels, mask, origin,
                                   norm, valid, fvalid, **kw)
+    return _launch(vect0, const_params, pixels, mask, origin, norm, valid,
+                   fvalid, None, **kw)
+
+
+def block_lm_clocks(vect0, const_params, pixels, mask, origin, norm, valid,
+                    fvalid=None, **kw):
+    """``block_lm`` on CUDA tensors that also returns each block's SM clock
+    cycles ``[B, 6]`` int64, as its thread 0 sees them: in all, in its
+    sweeps, in its damped Cholesky solves (what is left is the compaction
+    and the LM rules), and of the sweeps' cycles those building the pixel
+    rows, summing zᵀz and rounding the sums.  For measurement; the solve
+    is the same."""
+    B = vect0.shape[0]
+    clocks = torch.zeros((B, 6), dtype=torch.int64, device=pixels.device)
+    res = _launch(vect0, const_params, pixels, mask, origin, norm, valid,
+                  fvalid, clocks, **kw)
+    return res, clocks
+
+
+def blocks_per_sm(D, prof, V, n):
+    """Blocks of ``csrc/block_lm.cu`` an SM holds at once for V slots and n
+    features, by the CUDA runtime (its registers and shared memory)."""
+    return int(_library().block_lm_blocks_per_sm(D, prof, V, n))
+
+
+def _launch(vect0, const_params, pixels, mask, origin, norm, valid, fvalid,
+            clocks, *, model, layout, window_shape, lo, hi, max_iter=60,
+            ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3, lam_up=4.0,
+            lam_down=0.25, lam_max=1e10):
+    """Check the arguments and launch the kernel (counted in
+    ``block_lm.launches``)."""
+    device = pixels.device
     if device.type != "cuda":
         raise ValueError(f"block_lm: unsupported device {device}")
     B = vect0.shape[0]
@@ -203,7 +254,8 @@ def block_lm(vect0, const_params, pixels, mask, origin, norm, valid,
     slot_idx = torch.as_tensor(np.asarray(layout.slot_idx, np.int32),
                                device=device)
     valid_i = valid.to(i32)
-    scratch = torch.empty((B, wz * wy * wx), dtype=i32, device=device)
+    # each in-mask pixel's (value, mask / norm, that / n, index)
+    scratch = torch.empty((B, wz * wy * wx, 4), dtype=f32, device=device)
     x_out = torch.empty((B, V), dtype=f32, device=device)
     cost = torch.empty((B,), dtype=f32, device=device)
     n_iter = torch.empty((B,), dtype=i32, device=device)
@@ -220,7 +272,8 @@ def block_lm(vect0, const_params, pixels, mask, origin, norm, valid,
             float(lam_down), float(lam_max), float(1e6 * lam0),
             profile_tag(model), len(model.extra_params),
             x_out.data_ptr(), cost.data_ptr(), n_iter.data_ptr(),
-            conv.data_ptr(), stream,
+            conv.data_ptr(), None if clocks is None else clocks.data_ptr(),
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"block_lm: kernel launch failed, cudaError {rc}")

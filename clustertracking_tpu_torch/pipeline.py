@@ -74,6 +74,13 @@ _TAG_RECOVERED = False
 # whose candidate was dropped over the cap left them so, for comparisons
 # with it
 _KEEP_REST_FITS = True
+# the threshold statistics (median, MAD, percentile) come from every 4th
+# pixel along each axis; a frame whose sample would hold fewer than this
+# many pixels (2D under 256², 3D under 64³) takes all of its pixels.  None
+# subsamples every frame, as the reference does (its pipeline.py:1489-
+# 1493), for comparisons with it: on a 32² frame its floors come from 64
+# pixels and `percentile` is not the frame's percentile
+_FULL_STATS_BELOW = 4096
 # the joint refit's iteration budget (None = the caller's lm_max_iter /
 # max_iter): warm-started near the answer, a capped budget reaches the
 # same accept decisions
@@ -117,7 +124,9 @@ def locate(
     ``threshold=None`` takes the ``percentile`` of the frame floored at
     median + 6 robust sigma (1.4826·MAD; where the MAD is 0, as on
     quantized frames, (q90 − median)/1.2816), both from a 4×-strided
-    subsample.  ``preprocess='bandpass'`` smooths at ``noise_size`` px and
+    subsample (every pixel of a frame under 256², 3D under 64³; the
+    reference subsamples those too, ``_FULL_STATS_BELOW``).
+    ``preprocess='bandpass'`` smooths at ``noise_size`` px and
     subtracts a diameter-scale boxcar background first (frames with
     uneven illumination); ``threshold_tile`` (px) makes the default floor
     a per-tile median + MAD map.  ``device``: None is 'cuda', and raises
@@ -171,11 +180,16 @@ def _shrink_sizes(sizes, valid):
 
 
 def _subsample(x, T):
-    """[T, *S] -> [T, N/4^D] flattened: the 4×-strided statistics sample
-    (an exact median sorts every pixel; ~16k samples of a 512² frame
-    estimate the floors to ~1% of sigma)."""
+    """[T, *S] -> [T, n] flattened statistics sample: every 4th pixel
+    along each axis, n = N/4^D (an exact median sorts every pixel; ~16k
+    samples of a 512² frame estimate the floors to ~1% of sigma), or all
+    N pixels where that sample would hold fewer than
+    ``_FULL_STATS_BELOW``."""
     ix = (slice(None),) + (slice(None, None, 4),) * (x.dim() - 1)
-    return x[ix].reshape(T, -1)
+    sub = x[ix]
+    if _FULL_STATS_BELOW is not None and sub[0].numel() < _FULL_STATS_BELOW:
+        return x.reshape(T, -1)
+    return sub.reshape(T, -1)
 
 
 def _locate_frames(

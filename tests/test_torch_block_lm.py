@@ -271,8 +271,33 @@ def test_caps_fit_a_block():
         for prof in range(5):
             assert 4 * smem_words(D, prof, BLOCK_MAX_SLOTS,
                                   BLOCK_MAX_FEATURES) <= 232448
+    assert 4 * smem_words(2, 0, 120, 40) <= 232448
     assert build_layout(get_model("gauss"), 2, True, 40).n_slots == 120
     assert 120 <= BLOCK_MAX_SLOTS and 40 <= BLOCK_MAX_FEATURES
+
+
+@pytest.mark.parametrize("n", range(8, 21))
+def test_config5_chain_shapes_fit_two_blocks(n):
+    """Config 5's chains (2D isotropic Gaussians, 3 slots a feature: V =
+    24–60 for n = 8–20) fit two blocks in the 232,448 bytes of shared
+    memory an H100 SM gives its blocks, so 256 blocks run in one wave."""
+    V = build_layout(get_model("gauss"), 2, True, n).n_slots
+    assert V == 3 * n
+    assert 2 * 4 * smem_words(2, 0, V, n) <= 232448
+
+
+@pytest.mark.parametrize("D,prof", [(D, p) for D in (2, 3) for p in range(5)])
+def test_two_blocks_up_to_v64_and_the_caps_fit_one(D, prof):
+    """Every profile, 2D and 3D: two blocks fit an SM at V ≤ 64 with
+    n ≤ 32 (pixel rows a chunk: 256 up to V + 1 = 32, 192 up to 72
+    columns, 128 past them), one at the caps.  smem_words grows with V
+    and n at each chunk size."""
+    for V in range(20, 65):
+        assert 2 * 4 * smem_words(D, prof, V, min(32, V)) <= 232448
+    assert 4 * smem_words(D, prof, BLOCK_MAX_SLOTS,
+                          BLOCK_MAX_FEATURES) <= 232448
+    assert smem_words(D, prof, 31, 8) < smem_words(D, prof, 31, 9)
+    assert smem_words(D, prof, 100, 20) < smem_words(D, prof, 101, 20)
 
 
 def _refine_scene():
@@ -370,6 +395,37 @@ def test_kernel_matches_plain_on_the_card(case, model, extra_modes):
     res_k = block_lm(*args, **kw)
     torch.cuda.synchronize()
     assert block_lm.launches == before + 1
+    _card_agree(res_k, block_lm_reference(*args, **kw), lay)
+
+
+TILE_EDGES = {
+    # name: (n, live features, ndim, isotropic, modes); V = layout slots
+    "v20_size_var": (5, 5, 2, True, {"size": "var"}),
+    "v21_chain7": (7, 7, 2, True, None),
+    "v64_shared_background": (21, 20, 2, True, {"background": "cluster"}),
+    "v128_size_var": (32, 30, 2, True, {"size": "var"}),
+    "v32_chain3d": (8, 8, 3, True, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILE_EDGES))
+def test_kernel_matches_plain_at_tile_edges_on_the_card(case):
+    """The kernel's 8-column tiles of zᵀz at their edges: V = 20 (K = 21,
+    three blocks, one job sliced over 8 warps), V = 21, V = 64 (K = 65
+    spills one column into a ninth block, nine jobs; one background slot
+    that every feature shares), V = 128 (the cap: 17 blocks, 25 jobs) and
+    a 3D chain (V = 32, K = 33: two panels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, live, ndim, iso, modes = TILE_EDGES[case]
+    lay, window, inputs = _chain_scene(n, live, 6, ndim, iso, modes, seed=4)
+    assert lay.n_slots == int(case[1:].split("_")[0])
+    args, bounds = _torch_args(inputs, "cuda")
+    kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
+              max_iter=MAX_IT, **bounds)
+    res_k = block_lm(*args, **kw)
+    torch.cuda.synchronize()
     _card_agree(res_k, block_lm_reference(*args, **kw), lay)
 
 

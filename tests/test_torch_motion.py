@@ -1,7 +1,11 @@
 """``motion`` in the port is a copy of the reference's: every case of
 tests/test_motion.py goes through both on the same inputs, and the
 outputs are equal bit for bit (DataFrames exactly, dicts of floats by
-value, NaN equal to NaN).
+value, NaN equal to NaN), with ``motion._SAME_MEMBERS = False``.  The port
+repairs one fault of it, which that switch reproduces: a cluster
+trajectory continues only while its member set stays the same (a dimer
+that find_clusters merges with a neighbour, or whose member is relinked,
+starts a new trajectory), held by the tests after the copy's.
 """
 import numpy as np
 import pandas as pd
@@ -14,6 +18,15 @@ def _ref():
     from clustertracking_tpu import motion as ref_motion
 
     return ref_motion
+
+
+@pytest.fixture
+def reference_trajectories():
+    """Trajectories continued by majority member overlap, as the
+    reference continues them."""
+    keep, motion._SAME_MEMBERS = motion._SAME_MEMBERS, False
+    yield
+    motion._SAME_MEMBERS = keep
 
 
 def _brownian_dimer(D_trans=0.05, D_rot=0.02, T=400, sep=5.0, seed=0):
@@ -142,5 +155,47 @@ def _assert_same(a, b):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_motion_copy(case):
+def test_motion_copy(case, reference_trajectories):
     _assert_same(CASES[case](motion), CASES[case](_ref()))
+
+
+def _merging_dimers(T=12, merged=range(4, 6)):
+    """Two dimers 20 px apart, each turning 0.1 rad a frame; over the
+    ``merged`` frames find_clusters would see them as one cluster of 4."""
+    rows = []
+    for t in range(T):
+        for k, (pids, x0) in enumerate([((0, 1), 20.0), ((2, 3), 40.0)]):
+            th = 0.1 * t * (1 if k == 0 else -1)
+            for i, s in enumerate((1, -1)):
+                rows.append({
+                    "frame": t, "y": 30.0 + s * 2.5 * np.sin(th),
+                    "x": x0 + s * 2.5 * np.cos(th), "particle": pids[i],
+                    "cluster": 0 if t in merged else k})
+    return pd.DataFrame(rows)
+
+
+def test_trajectories_split_where_members_change():
+    """A merge (a cluster of 4 on frames 4 and 5) is a trajectory of its
+    own; each dimer takes its own up again after it, within max_gap:
+    three trajectories, each of one member set."""
+    traj = motion.cluster_trajectories(_merging_dimers(),
+                                       pos_columns=["y", "x"])
+    members = traj.groupby("cluster_traj")["members"].agg(set)
+    assert sorted(len(m) for m in members) == [1, 1, 1]
+    assert traj.groupby("cluster_traj").size().sort_values().tolist() == [
+        2, 10, 10]
+
+
+def test_merged_frames_do_not_turn_the_dimers(reference_trajectories):
+    """The reference continues a dimer's trajectory through the merge,
+    where the orientation is the 4-cluster's; the port's dimers turn by
+    their own 0.1 rad a frame."""
+    f = _merging_dimers()
+    ref_steps = motion.body_frame_displacements(
+        motion.cluster_trajectories(f, pos_columns=["y", "x"]))
+    motion._SAME_MEMBERS = True
+    traj = motion.cluster_trajectories(f, pos_columns=["y", "x"])
+    steps = motion.body_frame_displacements(traj[traj["cluster_size"] == 2])
+    assert len(steps) == 16
+    np.testing.assert_allclose(np.abs(steps["d_angle"]), 0.1, atol=1e-9)
+    assert np.abs(ref_steps["d_angle"]).max() > 0.5

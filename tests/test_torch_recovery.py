@@ -51,6 +51,17 @@ import clustertracking_tpu_torch as ctt
 from clustertracking_tpu_torch import artificial
 from clustertracking_tpu_torch import pipeline as tp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_statistics():
+    """Threshold statistics from the 4×-strided sample on every frame, as
+    the reference takes them (``pipeline._FULL_STATS_BELOW = None``), so
+    that this module's scenes under 256² compare with it."""
+    keep, tp._FULL_STATS_BELOW = tp._FULL_STATS_BELOW, None
+    yield
+    tp._FULL_STATS_BELOW = keep
+
+
 torch.set_num_threads(1)
 
 track_cpu = functools.partial(ctt.track, device="cpu")

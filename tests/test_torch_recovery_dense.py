@@ -36,6 +36,17 @@ from scipy.spatial import cKDTree
 import clustertracking_tpu_torch as ctt
 from clustertracking_tpu_torch import pipeline as tp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_statistics():
+    """Threshold statistics from the 4×-strided sample on every frame, as
+    the reference takes them (``pipeline._FULL_STATS_BELOW = None``): the
+    scene's 224² frame is under 256²."""
+    keep, tp._FULL_STATS_BELOW = tp._FULL_STATS_BELOW, None
+    yield
+    tp._FULL_STATS_BELOW = keep
+
+
 torch.set_num_threads(1)
 
 # coverage points by passes: pass 0 the stated tolerance, passes 1 and 2
