@@ -30,9 +30,9 @@ each:
 
 1. device   — fail unless CUDA is available; the card's name and power
               limit as nvidia-smi reports them;
-2. build    — build csrc/fused_lm_2d.cu, window_gather.cu, pixel_lm.cu
-              and block_lm.cu (one nvcc each, sm_90a, started together)
-              and time them;
+2. build    — build csrc/fused_lm_2d.cu, window_gather.cu, pixel_lm.cu,
+              block_lm.cu and tied_lm.cu (one nvcc each, sm_90a, started
+              together) and time them;
               each instantiation's registers, the warps per SM they allow,
               and any spill;
 3. kernel   — one fused_lm_2d launch against fused_lm_2d_reference on the
@@ -91,20 +91,26 @@ each:
 18. train   — train_leastsq on 8 frames of 512×512 drawn with
               tests/test_train.py's inverse-series PSF (289 clusters a
               frame, singles and dimers): the learned coefficients within
-              0.05 of the truth, seconds per round, lm_solve_global per
-              call, the device's idle share, window_gather bit-equal to
-              gather_stack on the first global bucket's windows and
-              timed; then refine_leastsq with the
+              0.05 of the truth, seconds per round, every tied solve
+              (csrc/tied_lm.cu, tagged cuda-tied-global) timed with its
+              joint iterations, the device's idle share, window_gather
+              bit-equal to gather_stack on the first global bucket's
+              windows and timed, tied_lm against tied_lm_reference on the
+              first tied launch (the tied slots within 1e-4 relative,
+              positions, cost, converged, the joint cost within 1e-4, two
+              runs bit-equal) and timed; then refine_leastsq with the
               learned coefficients on every feature, through fused_lm_2d's
               inv_series_2 profile, held to lm_backend='torch' and to the
               truth, and fused_lm_2d vs plain on that refit's first launch;
 19. global  — locate's raw candidates → find_clusters → refine_leastsq
               (constraints=dimer_global(ndim=2)): one bond length for the
               whole video, within 0.02 px of the drawn 5 px, rigid to 1e-3
-              px on every accepted dimer, window_gather bit-equal to
-              gather_stack on the first global bucket's windows and timed,
-              and the n-gon fused_lm_2d vs plain on the fixed-distance
-              refit's first launch;
+              px on every accepted dimer, the per-dispatch tied fits on
+              tied_lm (cuda-tied-rigid-global) and their share of the
+              wall, window_gather bit-equal to gather_stack on the first
+              global bucket's windows and timed, the n-gon fused_lm_2d vs
+              plain on the fixed-distance refit's first launch, and
+              tied_lm vs plain on the first tied launch, as in train;
 20. find    — the device label propagation (float64) at separation 6 on
               config 5's first frame of locate candidates (4 frames of
               1024×1024, 5,000 dimers, seed 5: benchmarks/suite.py's
@@ -161,7 +167,8 @@ each:
               one-device solver; (c) a tie across the shards, config 2's
               video in one dispatch with the size 'global' and
               dimer_global(): the tied values identical on every lane,
-              within 1e-4 of one device, two runs bit-equal; (d)
+              within 1e-4 of one device (tied_lm there), two runs
+              bit-equal, the sharded tie on lm_solve_global_shards; (d)
               link(mesh=) on configs 2 and 5's truth rows (config 5 in
               one-frame shards): card = CPU particle for particle,
               trajectories the single scan's (config 2) or on 99.9% of the
@@ -195,6 +202,7 @@ REPS_PLAIN = 2        # solves per timed block, plain route
 # kernel vs plain on the card: FMA contraction and summation order differ,
 # so per-lane agreement is held to these bounds
 POS_ATOL = 1e-3       # px, every lane
+TIED_RTOL = 1e-4      # tied_lm: the tied slots and the joint cost
 COST_RTOL = 1e-3      # every lane
 AGREE_FRAC = 0.999    # converged / npix equal on at least this share
 # A fit that reaches float32 resolution (config 4 is noise-free and fits
@@ -210,7 +218,8 @@ FLUSH_BYTES = 128 << 20   # read between timed gathers: over the 50 MB L2
 GATHER_REPS = 20
 STREAM_WINDOW = (161, 161)
 STREAM_RADIUS = (6.5, 6.5)
-KERNELS = ("fused_lm_2d", "window_gather", "pixel_lm", "block_lm")
+KERNELS = ("fused_lm_2d", "window_gather", "pixel_lm", "block_lm",
+           "tied_lm")
 # The rigid cells' geometry: bond lengths and edges as exact as float32
 # positions of a few hundred px allow (2D and 3D dimers, trimers), and the
 # tetramer's edges through the rotation vector to 1e-3 px.
@@ -338,12 +347,14 @@ def _bound(nbytes, ops):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def _lm_bound(res, args, kw):
+def _lm_bound(res, args, kw, sweeps=None, solves=None):
     """The bound of one LM launch (``fused_lm_2d`` or ``pixel_lm``
     arguments; the frames or pixels third) from this run's data: every
     valid lane's in-mask pixels (npix) times its sweeps (n_iter + 1), the
     damped Cholesky of each iteration, and the bytes of each lane's window
-    read once, its other inputs and its outputs."""
+    read once, its other inputs and its outputs.  ``sweeps`` / ``solves``
+    [B]: each lane's counts where they are not n_iter + 1 and n_iter (the
+    tied kernel's lanes follow the joint loop)."""
     from clustertracking_tpu_torch.ops.pixel_lm import pose_kind, profile_tag
     from clustertracking_tpu_torch.ops.rigid import rigid_kernel_slots
 
@@ -356,9 +367,12 @@ def _lm_bound(res, args, kw):
         int(con is not None and con.fit_dist))
     iters = res.n_iter.double().cpu().numpy()
     npix = res.npix.double().cpu().numpy()
-    sweeps = np.where(npix > 0, iters + 1, 0)
+    if sweeps is None:
+        sweeps = np.where(npix > 0, iters + 1, 0)
+    if solves is None:
+        solves = np.where(npix > 0, iters, 0)
     ops = (per_pixel * float((npix * sweeps).sum())
-           + (V ** 3 / 3 + 2 * V * V) * float(iters[npix > 0].sum()))
+           + (V ** 3 / 3 + 2 * V * V) * float(np.sum(solves)))
     B = len(iters)
     window = 4 * B * int(np.prod(kw["window_shape"]))
     lanes = sum(a.nbytes for i, a in enumerate(args)
@@ -396,9 +410,9 @@ def phase_build():
         # (D, streamed, profile, pose, slot ceiling; fused_lm_2d: profile,
         # pose, slot ceiling) = registers/warps per SM that they allow
         # window_gather and block_lm (D, profile): 256 threads per block
-        # (kThreads in the .cu)
+        # (kThreads in the .cu); tied_lm (D, profile, pose): 128
         entries = _ptxas_entries(report)
-        wpb = 8 if name in ("window_gather", "block_lm") else 1
+        wpb = {"window_gather": 8, "block_lm": 8, "tied_lm": 4}.get(name, 1)
         regs = " ".join(
             ",".join(_template_args(e))
             + f"={r}/{_warps_by_registers(r, wpb)}" for e, r, _ in entries)
@@ -922,9 +936,11 @@ def _reset_counts():
     from clustertracking_tpu_torch.ops.block_lm import block_lm
     from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
     from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
+    from clustertracking_tpu_torch.ops.tied_lm import tied_lm
     from clustertracking_tpu_torch.ops.window_gather import window_gather
 
     block_lm.launches = 0
+    tied_lm.launches = 0
     fused_lm_2d.launches = 0
     window_gather.launches = 0
     pixel_lm.launches_resident = 0
@@ -935,13 +951,14 @@ def _counts():
     from clustertracking_tpu_torch.ops.block_lm import block_lm
     from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
     from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
+    from clustertracking_tpu_torch.ops.tied_lm import tied_lm
     from clustertracking_tpu_torch.ops.window_gather import window_gather
 
     return dict(fused_lm_2d=fused_lm_2d.launches,
                 window_gather=window_gather.launches,
                 resident=pixel_lm.launches_resident,
                 streamed=pixel_lm.launches_streamed,
-                block_lm=block_lm.launches)
+                block_lm=block_lm.launches, tied_lm=tied_lm.launches)
 
 
 def phase_main3d(batch, device, smi):
@@ -2319,6 +2336,117 @@ def _block_path(first, n, stats, wall, what, smi):
           f"{what}: a bucket took lm_solve: {sorted(tags)}")
 
 
+class _FirstTied:
+    """Wraps ``refine.tied_lm`` while a main path runs: each call timed
+    with the card synchronized around it (ms, lanes, slots, the joint
+    loop's iterations) and the arguments of the first launch kept, to be
+    replayed against the plain version afterwards."""
+
+    def __enter__(self):
+        import torch
+
+        from clustertracking_tpu_torch import refine
+        from clustertracking_tpu_torch.ops.tied_lm import tied_lm
+
+        self.args = self.kw = None
+        self.calls = []
+        self.orig = refine.tied_lm
+
+        def wrapped(*args, **kw):
+            if self.args is None:
+                self.args, self.kw = args, kw
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = self.orig(*args, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.calls.append((ms, tuple(args[0].shape),
+                               int(tied_lm.last_iterations.item())))
+            return res
+
+        refine.tied_lm = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from clustertracking_tpu_torch import refine
+
+        refine.tied_lm = self.orig
+
+    def summary(self):
+        ms = [c[0] for c in self.calls]
+        return (f"tied_lm {len(self.calls)} calls, ms per call "
+                f"{[round(m, 3) for m in ms]} ({sum(ms):.1f} ms in all), "
+                f"joint iterations {[c[2] for c in self.calls]}, lanes x "
+                f"slots {[c[1] for c in self.calls]}")
+
+
+def _tied_replay(first, what, smi):
+    """tied_lm vs tied_lm_reference on a main path's first tied launch
+    (``_FirstTied``), on the card: the tied slots within rtol TIED_RTOL,
+    positions within POS_ATOL, per-lane cost within COST_RTOL where rms ≥
+    RMS_FLOOR, converged equal on AGREE_FRAC of the lanes (``_agreement``),
+    the joint cost within TIED_RTOL, two kernel runs bit-equal; the kernel
+    alone with L2 flushed, per call, its bound.  Returns the kernels-line
+    entry without its launches."""
+    import torch
+
+    from clustertracking_tpu_torch.ops.rigid import rigid_kernel_slots
+    from clustertracking_tpu_torch.ops.tied_lm import (
+        tied_lm, tied_lm_reference)
+
+    check(first.args is not None, f"{what}: no tied_lm launch to replay")
+    args, kw = first.args, first.kw
+    layout, con = kw["layout"], kw.get("constraint")
+    res_p, plain_ms = _timed(lambda: tied_lm_reference(*args, **kw))
+    res_k = tied_lm(*args, **kw)
+    iters = int(tied_lm.last_iterations.item())
+    grid = tied_lm.last_grid
+    again = tied_lm(*args, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(res_k, again))
+    if con is None:
+        pos = sorted({int(s) for p in layout.pos_param_idx
+                      for s in layout.slot_idx[:, p]})
+    else:
+        pos = _rigid_positions(layout, con)
+    a = _agreement(res_k, res_p, pos)
+    tied = np.flatnonzero(kw["global_slots"])
+    xk = res_k.x[:, tied].double().cpu().numpy()
+    xp = res_p.x[:, tied].double().cpu().numpy()
+    tied_rel = float(np.max(np.abs(xk - xp) / np.maximum(np.abs(xp),
+                                                         1e-30)))
+    valid = args[6].cpu().numpy()
+    jk = float(res_k.cost.double().cpu().numpy()[valid].sum())
+    jp = float(res_p.cost.double().cpu().numpy()[valid].sum())
+    joint_rel = abs(jk - jp) / max(jp, 1e-30)
+    check(tied_rel <= TIED_RTOL, f"{what}: tied slots disagree, {tied_rel}")
+    check(joint_rel <= TIED_RTOL, f"{what}: joint cost disagrees, {jk} "
+          f"against {jp}")
+    check(same, f"{what}: two tied_lm runs differ")
+    B = len(valid)
+    bound = _lm_bound(res_k, args, kw,
+                      sweeps=np.where(valid, iters + 2, 1),
+                      solves=np.where(valid, iters, 0))
+    ms = _cuda_ms(lambda: tied_lm(*args, **kw), 5)
+    alone = _kernel_alone_ms(lambda: tied_lm(*args, **kw), 5,
+                             name="tied_lm_kernel")
+    Vk = kw["global_slots"].size if con is None else len(
+        rigid_kernel_slots(layout, con)[1])
+    print(f"[{what}] {smi}: tied_lm vs plain on the first tied launch "
+          f"(B={B} lanes, {int(valid.sum())} valid, x {Vk} kernel slots, "
+          f"{len(tied)} tied; window {kw['window_shape']}, profile "
+          f"{kw['model'].name}{', ' + con.name if con else ''}; one "
+          f"launch a call, {grid} blocks of 4 warps, {iters} joint "
+          f"iterations): {_fmt(a)}; tied slots max rel {tied_rel:.3e}, "
+          f"joint cost {jk:.7f} against {jp:.7f} (rel {joint_rel:.3e}), two "
+          f"kernel runs bit-equal: {same}; kernel {alone:.4f} ms alone with "
+          f"L2 flushed, {ms:.3f} ms per call, plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}; time over bound "
+          f"{ms / bound['bound_ms']:.0f}x)", flush=True)
+    return dict(max_abs_err=a["pos"], ms=ms, plain_ms=plain_ms, **bound,
+                library_ms=None)
+
+
 def phase_train(device, smi):
     """train_leastsq at full frame size, then refine_leastsq with the
     learned coefficients through the inv_series_2 kernel."""
@@ -2326,8 +2454,7 @@ def phase_train(device, smi):
     from torch.profiler import ProfilerActivity, profile
 
     from clustertracking_tpu_torch import (
-        diagnostics, refine, refine_leastsq, train_leastsq)
-    from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
+        diagnostics, refine_leastsq, train_leastsq)
 
     t_phase = time.perf_counter()
     frames, truth = _train_scene()
@@ -2341,50 +2468,32 @@ def phase_train(device, smi):
     print(f"[train] {smi}: the scene with noise σ=1 (not gated; the first "
           f"call in the process): learned {learned_n} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    calls = []
-    orig = refine.lm_solve_global_shards
-
-    def timed(shards, *args, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = orig(shards, *args, **k)
-        torch.cuda.synchronize()
-        calls.append((time.perf_counter() - t0,
-                      max(int(r.n_iter.max()) for r in res),
-                      (sum(sh.x0.shape[0] for sh in shards),
-                       shards[0].x0.shape[1])))
-        return res
-
-    refine.lm_solve_global_shards = timed
-    try:
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        with _FirstGather() as gathered, diagnostics.collect() as stats:
-            learned = train_leastsq(truth, frames, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_train = _counts()
-    finally:
-        refine.lm_solve_global_shards = orig
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _FirstGather() as gathered, _FirstTied() as tied, \
+            diagnostics.collect() as stats:
+        learned = train_leastsq(truth, frames, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_train = _counts()
     tags = sorted({b.backend for b in stats.batches})
     per_round = len({b.cluster_size for b in stats.batches})
     rounds = len(stats.batches) // max(per_round, 1)
     err = [abs(learned[f"coeff_{k + 1}"] - c)
            for k, c in enumerate(TRAIN_COEFFS)]
-    ms_call = [1e3 * c[0] for c in calls]
+    tied_s = sum(c[0] for c in tied.calls) / 1e3
     print(f"[train] {smi}: train_leastsq on {TRAIN_FRAMES} frames of 512x512"
           f" ({len(truth)} features; the first 512 clusters sampled): "
           f"learned {learned}, |error| {err}; {wall:.2f} s, {rounds} rounds "
           f"({wall / max(rounds, 1):.2f} s per round), {tags}; "
-          f"lm_solve_global {len(calls)} calls, ms per call "
-          f"{[round(m, 1) for m in ms_call]}, max lane n_iter "
-          f"{[c[1] for c in calls]}, lanes x slots {[c[2] for c in calls]}; "
-          f"launches {n_train}", flush=True)
+          f"{tied.summary()}: {tied_s:.3f} s of the {wall:.2f} s in the "
+          f"tied solves; launches {n_train}", flush=True)
     check(max(err) < TRAIN_TOL, f"learned coefficients off by {err}")
     kind = torch.device(device).type
-    check(tags == [f"{kind}-torch-global"], f"train dispatches took {tags}")
+    check(tags == [f"{kind}-tied-global"], f"train dispatches took {tags}")
     check(n_train["window_gather"] > 0, "training launched no window_gather")
+    check(n_train["tied_lm"] > 0, "training launched no tied_lm")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         train_leastsq(truth, frames, **kw)
@@ -2425,11 +2534,13 @@ def phase_train(device, smi):
     check(dpos <= POS_ATOL, f"kernel and plain routes differ by {dpos} px")
     entry = _replay(first, "train", smi)
     gather = _gather_replay(gathered, "train", smi)
+    tied_entry = _tied_replay(tied, "train", smi)
     print(f"[train] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return (dict(launches=n["fused_lm_2d"], **entry),
             dict(launches=n_train["window_gather"] + n["window_gather"],
-                 **gather))
+                 **gather),
+            dict(launches=n_train["tied_lm"], **tied_entry))
 
 
 def phase_global(frames, truth, raw, device, smi):
@@ -2447,7 +2558,7 @@ def phase_global(frames, truth, raw, device, smi):
     _reset_counts()
     t0 = time.perf_counter()
     with _FirstLaunch(rigid=True) as first, _FirstGather() as gathered, \
-            diagnostics.collect() as stats:
+            _FirstTied() as tied, diagnostics.collect() as stats:
         out = refine_leastsq(f, frames, diameter=LOC_DIAMETER,
                              separation=LOC_SEPARATION,
                              constraints=dimer_global(ndim=2),
@@ -2456,6 +2567,7 @@ def phase_global(frames, truth, raw, device, smi):
     wall = time.perf_counter() - t0
     n = _counts()
     tags = sorted({b.backend for b in stats.batches})
+    tied_s = sum(c[0] for c in tied.calls) / 1e3
     acc = out[(out["cluster_size"] == 2) & out["cost"].notna()]
     pos = acc.sort_values("cluster", kind="stable")[["y", "x"]].to_numpy(
     ).reshape(-1, 2, 2)
@@ -2468,16 +2580,27 @@ def phase_global(frames, truth, raw, device, smi):
           f"{first.launches[False]}); global_dist {d:.5f} px, "
           f"{len(bonds)} accepted dimers, bond span {np.ptp(bonds):.2e} px, "
           f"accepted {out['cost'].notna().mean():.4f}", flush=True)
+    print(f"[global] {smi}: the split of the {wall:.2f} s: {tied.summary()}:"
+          f" {tied_s:.3f} s in the per-dispatch tied solves, "
+          f"{wall - tied_s:.3f} s in the rest (gathers, the fixed-distance "
+          f"refits, the pooled distance steps, host work)", flush=True)
+    kind = torch.device(device).type
+    check(f"{kind}-tied-rigid-global" in tags
+          and not any("-torch" in t for t in tags),
+          f"dimer_global's dispatches took {tags}")
+    check(n["tied_lm"] > 0, "dimer_global launched no tied_lm")
     check(first.launches[True] > 0, "no n-gon fused_lm_2d launch")
     check(np.ptp(bonds) < GLOBAL_PTP_TOL, f"bonds span {np.ptp(bonds)} px")
     check(abs(d - LOC_BOND) < GLOBAL_DIST_TOL, f"global_dist {d} px")
     check(n["window_gather"] > 0, "dimer_global launched no window_gather")
     entry = _replay(first, "global", smi)
     gather = _gather_replay(gathered, "global", smi)
+    tied_entry = _tied_replay(tied, "global", smi)
     print(f"[global] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return (dict(launches=first.launches[True], **entry),
-            dict(launches=n["window_gather"], **gather))
+            dict(launches=n["window_gather"], **gather),
+            dict(launches=n["tied_lm"], **tied_entry))
 
 
 def _min_index_labels(labels):
@@ -3610,11 +3733,15 @@ def phase_mesh(c1, c4, frames, truth, raw, c5_truth, device, smi):
                constraints=dimer_global(ndim=2), param_val={"size": LOC_SIZE},
                param_mode={"size": "global"}, frames_per_dispatch=LOC_FRAMES,
                max_iter=1)
-    tie_1, wall_t1 = _walled(lambda: refine_leastsq(fc, frames, device=device,
-                                                    **kwc))
+    with diagnostics.collect() as stats_1:
+        tie_1, wall_t1 = _walled(lambda: refine_leastsq(
+            fc, frames, device=device, **kwc))
+    tags_1 = sorted({b.backend for b in stats_1.batches})
+    tied_before = counts.get("tied_lm", 0)
     with _FirstGather() as first_gather, _ShardLaunches() as per_t:
         tie_m, wall_tm, stats_t = sharded(
             lambda: refine_leastsq(fc, frames, mesh=mesh, **kwc))
+    tied_sharded = counts.get("tied_lm", 0) - tied_before
     tie_m2, _, _ = sharded(lambda: refine_leastsq(fc, frames, mesh=mesh,
                                                   **kwc))
     same_run = _bit_equal(tie_m, tie_m2, list(tie_m.columns)) and \
@@ -3631,7 +3758,10 @@ def phase_mesh(c1, c4, frames, truth, raw, c5_truth, device, smi):
           f"dispatch ({len(fc)} candidates): {wall_tm:.3f} s sharded, "
           f"{wall_t1:.3f} s on one device ({wall_tm / wall_t1:.2f}x), "
           f"{tags_t}; tied size's spread by cluster size {spread} (tol "
-          f"{MESH_PTP:g}), relative to one device {rel}; global_dist "
+          f"{MESH_PTP:g}), relative to one device {rel} (one device: "
+          f"{tags_1}; the sharded tie takes lm_solve_global_shards, its "
+          f"sums across the shards, and launched tied_lm {tied_sharded} "
+          f"times); global_dist "
           f"{d_m:.6f} px sharded, {d_1:.6f} on one device (rel {rel_d:.2e}, "
           f"tol {MESH_TIE_RTOL:g}); two sharded runs bit-equal: {same_run};"
           f" window_gather by shard of each dispatch "
@@ -3641,8 +3771,10 @@ def phase_mesh(c1, c4, frames, truth, raw, c5_truth, device, smi):
     check(max(rel.values()) < MESH_TIE_RTOL, f"tied size vs one device {rel}")
     check(rel_d < MESH_TIE_RTOL, f"global_dist vs one device {rel_d}")
     check(same_run, "two sharded runs of the tie differ")
-    check("cuda-torch-rigid-global-sharded" in tags_t,
-          f"the tie took {tags_t}")
+    check("cuda-torch-rigid-global-sharded" in tags_t and tied_sharded == 0,
+          f"the sharded tie took {tags_t}, {tied_sharded} tied_lm launches")
+    check("cuda-tied-rigid-global" in tags_1,
+          f"the tie on one device took {tags_1}")
     check(len(per_t.shards) >= mesh.size
           and per_t.least("window_gather") >= 1,
           f"a shard of the tie launched no window_gather: {per_t.shards}")
@@ -3799,9 +3931,9 @@ def main():
     del rigid
     frames, truth, raw = phase_locate(device, smi)
     _stamp("locate")
-    kt, gt = phase_train(device, smi)
+    kt, gt, tt = phase_train(device, smi)
     _stamp("train")
-    kg, gg = phase_global(frames, truth, raw, device, smi)
+    kg, gg, tg = phase_global(frames, truth, raw, device, smi)
     _stamp("global")
     from clustertracking_tpu_torch.pipeline import _locate_frames
 
@@ -3892,6 +4024,14 @@ def main():
             source=src + "window_gather.cu",
             replaces="clustertracking_tpu/ops/pallas_gather.py:144",
             **entry))
+    # the tied solves of the calibration path: train_leastsq's shared
+    # coefficients and dimer_global's shared distance (the reference solves
+    # them in XLA, its lm_solve_global; no Pallas kernel)
+    for what, entry in (("train", tt), ("global", tg)):
+        kernels.append(dict(
+            name=f"tied_lm [{what}]", route="cuda",
+            source=src + "tied_lm.cu",
+            replaces="clustertracking_tpu/ops/lm.py:289", **entry))
     # the tracking pipeline: config 2's fits, and config 5's small clusters
     # in fused_lm_2d and its chains' windows in window_gather
     for what, entry in (("track, config 2", ktr), ("track5, config 5", ktr5)):

@@ -59,6 +59,7 @@
 // plain version does.
 
 #include "lm_core.cuh"
+#include "pixel_list.cuh"
 
 namespace {
 
@@ -88,21 +89,6 @@ struct Problem {
   float* npix;               // [B]
 };
 
-template <int D>
-__device__ inline void unpack(int pk, int sy, int sz, int my, int mx,
-                              int* z, int* y, int* x) {
-  *x = pk & mx;
-  *y = (pk >> sy) & my;
-  *z = D == 3 ? (pk >> sz) : 0;
-}
-
-template <int D>
-__device__ inline void offsets(int z, int y, int x, float* off) {
-  if (D == 3) off[0] = (float)z;
-  off[D - 2] = (float)y;
-  off[D - 1] = (float)x;
-}
-
 // Resident: the listed voxels' packed coordinates and values in shared
 // memory.
 template <int D>
@@ -117,24 +103,6 @@ struct ResidentPixels {
     unpack<D>(idx[k], sy, sz, my, mx, &z, &y, &x);
     offsets<D>(z, y, x, off);
     v = val[k];
-    w = wc;
-  }
-};
-
-// Streamed: the list in a global scratch row, values read from the
-// cluster's pixel row on every sweep.
-template <int D>
-struct StreamedPixels {
-  const int* idx;
-  const float* pix;
-  int cnt, sy, sz, my, mx, wy, wx;
-  float wc;
-  __device__ int count() const { return cnt; }
-  __device__ void load(int k, float* off, float& v, float& w) const {
-    int z, y, x;
-    unpack<D>(idx[k], sy, sz, my, mx, &z, &y, &x);
-    offsets<D>(z, y, x, off);
-    v = pix[(z * wy + y) * wx + x];
     w = wc;
   }
 };
@@ -331,12 +299,6 @@ int dispatch(int D, int streamed, int prof, int pose, int V, int op,
              Problem* p, cudaStream_t s, int npx, int* out) {
   return streamed ? run_pose<true>(D, prof, pose, V, op, p, s, npx, out)
                   : run_pose<false>(D, prof, pose, V, op, p, s, npx, out);
-}
-
-int bits_for(int w) {  // bits that hold 0..w-1
-  int k = 0;
-  while ((1 << k) < w) ++k;
-  return k;
 }
 
 }  // namespace

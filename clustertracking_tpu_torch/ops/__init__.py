@@ -5,6 +5,7 @@ from .lm import LMResult, lm_solve, lm_solve_global
 from .pixel_lm import pixel_lm, pixel_lm_reference
 from .residual import make_model_fns, window_offsets
 from . import synth  # noqa: F401  (render_frames, frames_from_df)
+from .tied_lm import tied_lm, tied_lm_reference
 from .window_gather import window_gather
 
 __all__ = [
@@ -19,6 +20,8 @@ __all__ = [
     "make_model_fns",
     "pixel_lm",
     "pixel_lm_reference",
+    "tied_lm",
+    "tied_lm_reference",
     "window_gather",
     "window_offsets",
 ]

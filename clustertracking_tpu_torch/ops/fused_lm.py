@@ -20,8 +20,9 @@ Levenberg–Marquardt solve in one launch.  Here:
   windows that fit ``fused_lm_2d``'s shared memory, 'gathered'
   (``window_gather`` then ``pixel_lm``) for 3D windows and larger 2D ones,
   'block' (``window_gather`` then ``ops/block_lm.py::block_lm``) for
-  unconstrained buckets of 20 slots or more, None (``lm_solve``) for the
-  rest.
+  unconstrained buckets of 20 slots or more, 'tied'
+  (``ops/tied_lm.py::tied_lm``) for buckets with slots tied across lanes,
+  None (``lm_solve`` / ``lm_solve_global``) for the rest.
 
 Both versions take the reference's ``solve_fused`` arguments::
 
@@ -52,6 +53,7 @@ from .pixel_lm import (
     KernelProblem, pixel_lm_reference, pose_kind, profile_tag)
 from .pixel_lm import smem_words as _smem_words
 from .rigid import rigid_kernel_slots, rigid_supported
+from .tied_lm import tie_supported
 from .window_gather import check_tensor
 
 __all__ = ["check_kernel_args", "fused_lm_2d", "fused_lm_2d_reference",
@@ -79,36 +81,51 @@ def fused_max_pixels(profile=0, pose=0):
 def kernel_route(model: ModelSpec, layout: ParamLayout, use_global: bool,
                  constraint, window_shape):
     """The kernel route of a bucket configuration: 'fused', 'gathered',
-    'block' or None (``lm_solve``).
+    'block', 'tied' or None (``lm_solve``, or ``lm_solve_global`` for a
+    tied bucket).
 
     The reference's ``pallas_available`` decides warp kernel or not:
-    cross-lane-tied 'global' slots, zero-slot layouts, buckets at or past
-    ``_KERNEL_MAX_SLOTS`` kernel slots (a rigid bucket's compact length)
-    and windows past ``_MAX_WINDOW_PIXELS`` leave the warp kernels, and
-    so do generic (penalty) constraints and rigid ones the kernels do not
-    inline (a globally tied distance, positions not all fitted).  Its
-    ``fused_ok`` decides which: 2D windows within ``fused_max_pixels``
-    are fused, 3D windows and larger 2D ones are gathered (a rigid 2D
-    bucket too large to fuse takes ``lm_solve``).  Where the reference
-    takes XLA's ``lm_solve`` for an unconstrained bucket of
-    ``_KERNEL_MAX_SLOTS`` to ``BLOCK_MAX_SLOTS`` slots and at most
-    ``BLOCK_MAX_FEATURES`` features (config 5's chains), the port takes
-    'block': ``window_gather``, then ``csrc/block_lm.cu``.  Tied and
-    constrained buckets of that size, and larger ones, take ``lm_solve``.
-    A custom model (``profile_tag`` None) is a Python callable no CUDA
-    kernel can evaluate, so its buckets take ``lm_solve``.  Every choice
-    is static, made before any launch, not a fallback."""
-    if use_global:
-        return None
+    zero-slot layouts, buckets at or past ``_KERNEL_MAX_SLOTS`` kernel
+    slots (a rigid bucket's compact length) and windows past
+    ``_MAX_WINDOW_PIXELS`` leave the warp kernels, and so do generic
+    (penalty) constraints and rigid ones the kernels do not inline
+    (positions not all fitted).  Its ``fused_ok`` decides which: 2D
+    windows within ``fused_max_pixels`` are fused, 3D windows and larger
+    2D ones are gathered (a rigid 2D bucket too large to fuse takes
+    ``lm_solve``).  Where the reference takes XLA's ``lm_solve`` for an
+    unconstrained bucket of ``_KERNEL_MAX_SLOTS`` to ``BLOCK_MAX_SLOTS``
+    slots and at most ``BLOCK_MAX_FEATURES`` features (config 5's
+    chains), the port takes 'block': ``window_gather``, then
+    ``csrc/block_lm.cu``.  Where it takes XLA's ``lm_solve_global`` for a
+    bucket with slots tied across lanes ('global' modes, a
+    ``dimer_global()`` distance), the port takes 'tied' (``window_gather``,
+    then ``ops/tied_lm.py::tied_lm``, ``csrc/tied_lm.cu``) for fewer than
+    ``_KERNEL_MAX_SLOTS`` kernel slots in a window within
+    ``_MAX_WINDOW_PIXELS``, unconstrained or rigid as ``tie_supported``
+    says (the warp kernels' poses with the distance tied); a tied bucket
+    of more slots or with a generic constraint takes ``lm_solve_global``.
+    Untied constrained buckets of ``_KERNEL_MAX_SLOTS`` or more, and
+    larger ones, take ``lm_solve``.  A custom model (``profile_tag``
+    None) is a Python callable no CUDA kernel can evaluate, so its
+    buckets take ``lm_solve`` or ``lm_solve_global``.  Every choice is
+    static, made before any launch, not a fallback."""
     prof = profile_tag(model)
     if prof is None:
         return None
     n_slots = layout.n_slots
+    npix = int(np.prod(window_shape))
+    if use_global:
+        if not tie_supported(layout, constraint):
+            return None
+        if constraint is not None:
+            n_slots = len(rigid_kernel_slots(layout, constraint)[1])
+        if 0 < n_slots < _KERNEL_MAX_SLOTS and npix <= _MAX_WINDOW_PIXELS:
+            return "tied"
+        return None
     if constraint is not None:
         if not rigid_supported(layout, constraint):
             return None
         n_slots = len(rigid_kernel_slots(layout, constraint)[1])
-    npix = int(np.prod(window_shape))
     if n_slots < 1 or npix > _MAX_WINDOW_PIXELS:
         return None
     if n_slots >= _KERNEL_MAX_SLOTS:

@@ -1074,6 +1074,18 @@ def _accept_gates(f, acc, recovered_col, old_cost_col, pre_vals, old_ref,
     return f, int(restore.sum()), counts
 
 
+def _floor_sample(res):
+    """The pixels of a residual frame (numpy) that its noise floor comes
+    from: every 4th along each axis, or every pixel where that sample
+    would hold fewer than ``_FULL_STATS_BELOW`` (None: the strided sample
+    on every frame, the reference's pipeline.py:1076-1081), as
+    ``_subsample`` takes the threshold statistics."""
+    sub = res[(slice(None, None, 4),) * res.ndim]
+    if _FULL_STATS_BELOW is not None and sub.size < _FULL_STATS_BELOW:
+        return res
+    return sub
+
+
 def _old_rms_on_footprint(g, rreader, diameter, pos_columns, t_column,
                           host_frames=None):
     """The previous model's residual rms per cluster on the cluster's own
@@ -1085,8 +1097,8 @@ def _old_rms_on_footprint(g, rreader, diameter, pos_columns, t_column,
     ``rreader[t]``: data − previous model; ``host_frames``: residual
     frames already on the host, used instead of ``rreader``.  The noise
     floor is 1.4826·MAD of the window's out-of-footprint pixels (where at
-    least 16 lie out of the footprint), floored at the frame's own (from a
-    4×-strided subsample).  Clusters are batched by size, and within a
+    least 16 lie out of the footprint), floored at the frame's own
+    (``_floor_sample``).  Clusters are batched by size, and within a
     size by their window extent rounded up to 8 px.  Host numpy, the
     reference's statistics (clustertracking_tpu/pipeline.py:1048).
     Returns ({cluster id: rms}, {cluster id: noise})."""
@@ -1100,7 +1112,7 @@ def _old_rms_on_footprint(g, rreader, diameter, pos_columns, t_column,
             res = rreader[int(t)]
             res = (res.cpu().numpy() if isinstance(res, torch.Tensor)
                    else np.asarray(res, dtype=np.float32))
-        sub = res[(slice(None, None, 4),) * res.ndim]
+        sub = _floor_sample(res)
         med_t = float(np.median(sub))
         noise_t = 1.4826 * float(np.median(np.abs(sub - med_t)))
         shape = np.asarray(res.shape)

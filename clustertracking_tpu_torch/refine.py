@@ -12,7 +12,9 @@ cluster of the bucket together:
   ``csrc/window_gather.cu`` then ``csrc/pixel_lm.cu``, once per refit
   round), 'block' (unconstrained buckets of 20 slots or more, such as
   config 5's chains: ``csrc/window_gather.cu`` then
-  ``csrc/block_lm.cu``) or none (``ops/lm.py::lm_solve``);
+  ``csrc/block_lm.cu``), 'tied' (buckets with slots tied across lanes:
+  ``csrc/window_gather.cu`` then ``csrc/tied_lm.cu``) or none
+  (``ops/lm.py::lm_solve`` / ``lm_solve_global``);
 - constrained buckets (``constraints=``) fit a rigid pose exactly
   (``ops/rigid.py``; on CUDA through the rigid instantiations of the same
   kernels) or, for reference-style dicts, the free positions with
@@ -25,9 +27,11 @@ cluster of the bucket together:
 - clusters bigger than ``max_cluster_size`` spill to the host scipy path
   (hostref.py);
 - 'global' parameter modes (the default of the inv_series coefficients)
-  tie their slots across each dispatch's lanes through
-  ``ops/lm.py::lm_solve_global``, on the device of the frames (no kernel
-  takes a tied slot, as in the reference); a rigid distance tied across
+  tie their slots across each dispatch's lanes in one joint solve, on the
+  device of the frames: on CUDA one launch of ``csrc/tied_lm.cu``
+  (``ops/tied_lm.py``; the reference solves them in XLA), else
+  ``ops/lm.py::lm_solve_global``, and across a mesh's shards
+  ``lm_solve_global_shards``; a rigid distance tied across
   every cluster (``dimer_global()``'s default) alternates a pooled Newton
   step on the whole video's distance with a refit at that distance fixed
   (``_joint_global_dist``), and reports it in ``out.attrs``.
@@ -67,6 +71,7 @@ from .ops.lm import GlobalShard, lm_solve, lm_solve_global_shards
 from .ops.pixel_lm import pixel_lm
 from .ops.residual import make_model_fns
 from .ops.rigid import make_constrained_fns
+from .ops.tied_lm import tied_lm
 from .ops.window_gather import window_gather
 from .utils import default_size_columns, guess_pos_columns, validate_tuple
 
@@ -82,14 +87,14 @@ _GATHER_BACKENDS = ("auto", "torch")
 
 
 def _route_taken(lm_backend, route, device):
-    """The route a bucket's solve takes: 'fused', 'gathered', 'block' or
-    'torch'.
+    """The route a bucket's solve takes: 'fused', 'gathered', 'block',
+    'tied' or 'torch'.
 
     'auto' takes the bucket's kernel route (``kernel_route``) on CUDA;
-    'kernel' forces it (its plain versions on CPU); 'torch' forces
-    lm_solve."""
-    if lm_backend == "kernel" or (lm_backend == "auto" and route is not None
-                                  and device.type == "cuda"):
+    'kernel' forces it (its plain versions on CPU); 'torch', or a bucket
+    with no kernel route, takes lm_solve (lm_solve_global when tied)."""
+    if route is not None and (lm_backend == "kernel" or (
+            lm_backend == "auto" and device.type == "cuda")):
         return route
     return "torch"
 
@@ -218,23 +223,14 @@ def _shard_solver(
             "lm_backend='kernel' unsupported for this configuration "
             f"(V={layout.n_slots} slots, n={n}, window {window_shape}, "
             f"constraint {getattr(constraint, 'name', None)!r}, "
-            f"global-tied slots {use_global}): the kernels take no tied "
-            "slot, no custom model, no window past "
-            f"{_MAX_WINDOW_PIXELS} pixels, no constrained bucket of "
-            f"{_KERNEL_MAX_SLOTS} kernel slots or more and no bucket past "
-            f"{BLOCK_MAX_SLOTS} slots or {BLOCK_MAX_FEATURES} features"
+            f"global-tied slots {use_global}): the kernels take no custom "
+            f"model, no window past {_MAX_WINDOW_PIXELS} pixels, no tied "
+            f"or constrained bucket of {_KERNEL_MAX_SLOTS} kernel slots or "
+            "more, no tied bucket under a generic constraint and no bucket "
+            f"past {BLOCK_MAX_SLOTS} slots or {BLOCK_MAX_FEATURES} features"
         )
     if use_global:
-        # the slots tied across lanes, over the solve's vector: a rigid
-        # bucket's is [pose, distance, std slots], so a shared distance is
-        # slot Qt - 1 and the model's slots follow at Qt + s
-        Qt = (pose_dim(constraint) + int(constraint.fit_dist)
-              if constraint is not None and constraint.kind == "rigid"
-              else 0)
-        gslots = np.zeros(Qt + layout.n_slots, dtype=bool)
-        if _global_distance(constraint):
-            gslots[Qt - 1] = True
-        gslots[Qt:] = layout.global_slots
+        gslots = _tied_slots(layout, constraint)
 
     def setup(frames, frame_idx, params0, pose0, valid, fvalid=None):
         """One shard's (or the whole bucket's) solve state, on the device
@@ -327,9 +323,11 @@ def _shard_solver(
         return res, pos_at
 
     def tied_round(shs, vects, needs):
-        """One refit round of a tied bucket: ONE joint lm_solve_global over
-        every shard's lanes, the windows gathered on each shard's
-        device."""
+        """One refit round of a tied bucket: ONE joint solve over every
+        shard's lanes, the windows gathered on each shard's device.  On
+        one shard taking the 'tied' route it is ``tied_lm`` (the kernel on
+        CUDA, its plain version on CPU); otherwise, and always across
+        shards, whose sums cross devices, ``lm_solve_global_shards``."""
         pos_ats, masks, parts = [], [], []
         for sh, vect, need in zip(shs, vects, needs):
             pos_at, origin = window_of(sh, vect)
@@ -342,8 +340,17 @@ def _shard_solver(
                 sh.lo_b, sh.hi_b, need))
             pos_ats.append(pos_at)
             masks.append(mask)
-        results = lm_solve_global_shards(
-            parts, gslots, max_iter=lm_max_iter, ftol=ftol, xtol=xtol)
+        if len(shs) == 1 and shs[0].taken == "tied":
+            p, sh = parts[0], shs[0]
+            results = [tied_lm(
+                p.x0, *p.args[:5], p.valid, sh.fvalid, model=model,
+                layout=layout, window_shape=window_shape,
+                global_slots=gslots, lo=sh.lo_np, hi=sh.hi_np,
+                max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
+                constraint=constraint)]
+        else:
+            results = lm_solve_global_shards(
+                parts, gslots, max_iter=lm_max_iter, ftol=ftol, xtol=xtol)
         return [(res._replace(npix=mask.sum(dim=1)), pos_at)
                 for res, mask, pos_at in zip(results, masks, pos_ats)]
 
@@ -476,21 +483,24 @@ def _mesh_bucket_solver(mesh, model, ndim, isotropic, n, param_mode_key,
       refit loop runs in lockstep over the shards, each round one joint
       ``lm_solve_global_shards`` whose sums over lanes are all-reduced
       (``ops/collectives.py::all_reduce``) — what GSPMD inserts in the
-      reference.
+      reference.  Over more than one shard this is the tie's static
+      route on every device (``csrc/tied_lm.cu`` sums within one launch
+      on one device); a mesh of one shard takes the bucket's route.
 
     Returns ``(call, layout, backend_tag)``: ``call`` takes and returns
     what the single-device solver does, its outputs joined in lane order
     on the mesh's first device; the tag is the single-device one with
-    ``-sharded`` appended (``cuda-fused-sharded``,
-    ``cuda-torch-global-sharded``, ...)."""
+    ``-sharded`` appended (``cuda-fused-sharded``, and for a tie over
+    several shards ``cuda-torch-global-sharded``, ...)."""
     solve_shards, layout, use_global, route = _shard_solver(
         model, ndim, isotropic, n, param_mode_key, window_shape, radius,
         bounds_key, constraint, residual_factor, max_iter, max_shift,
         lm_max_iter, ftol, xtol, compute_error, lm_backend, gather_backend,
         streaming)
     dev0 = mesh.devices[0]
-    backend_tag = _backend_tag(lm_backend, route, use_global, constraint,
-                               dev0) + "-sharded"
+    tag_route = None if use_global and mesh.size > 1 else route
+    backend_tag = _backend_tag(lm_backend, tag_route, use_global,
+                               constraint, dev0) + "-sharded"
 
     def call(stack, fidx, params0, pose0, valid, fvalid=None):
         lanes = [None if a is None else torch.as_tensor(a)
@@ -511,9 +521,9 @@ def _mesh_bucket_solver(mesh, model, ndim, isotropic, n, param_mode_key,
 
 def _backend_tag(lm_backend, route, use_global, constraint, device):
     """A dispatch's ``diagnostics`` tag: the device type, the route taken
-    (``fused``, ``gathered``, ``block``, ``torch``), ``-rigid`` /
-    ``-penalty`` for a constrained bucket and ``-global`` for a tied
-    one."""
+    (``fused``, ``gathered``, ``block``, ``tied``, ``torch``), ``-rigid``
+    / ``-penalty`` for a constrained bucket and ``-global`` for a tied
+    one (``cuda-tied-global``, ``cuda-tied-rigid-global``)."""
     kind = "" if constraint is None else (
         "-rigid" if constraint.kind == "rigid" else "-penalty")
     kind += "-global" if use_global else ""
@@ -525,6 +535,20 @@ def _global_distance(constraint) -> bool:
     """A rigid constraint whose fitted distance is one for every cluster."""
     return (constraint is not None and constraint.kind == "rigid"
             and constraint.fit_dist and constraint.dist_mode == "global")
+
+
+def _tied_slots(layout, constraint):
+    """[V] bool: the slots of a tied bucket's solve vector that are tied
+    across lanes.  A rigid bucket's vector is [pose, distance, std
+    slots], so a shared distance is slot Qt − 1 and the model's 'global'
+    slots follow at Qt + s."""
+    Qt = (pose_dim(constraint) + int(constraint.fit_dist)
+          if constraint is not None and constraint.kind == "rigid" else 0)
+    gslots = np.zeros(Qt + layout.n_slots, dtype=bool)
+    if _global_distance(constraint):
+        gslots[Qt - 1] = True
+    gslots[Qt:] = layout.global_slots
+    return gslots
 
 
 def _uses_global(layout, constraint) -> bool:
@@ -727,14 +751,16 @@ def refine_leastsq(
     ``lm_backend``: 'auto' (on CUDA, each bucket's kernel route:
     ``fused_lm_2d`` for 2D windows, ``window_gather`` then ``pixel_lm``
     for 3D and large 2D ones, ``window_gather`` then ``block_lm`` for
-    unconstrained buckets of 20 slots or more), 'kernel' (force the
-    kernel route; its plain versions on CPU) or 'torch' (``lm_solve``).
-    Dispatches are tagged by route (``cuda-fused``, ``cuda-gathered``,
-    ``cuda-block``, ``cuda-torch``), those of constrained buckets with
-    their kind too: ``cuda-fused-rigid``,
-    ``cuda-torch-penalty``, ...; buckets with slots tied across lanes
-    (``lm_solve_global``) add ``-global``: ``cuda-torch-global``,
-    ``cuda-torch-rigid-global``.
+    unconstrained buckets of 20 slots or more, ``window_gather`` then
+    ``tied_lm`` for buckets with slots tied across lanes), 'kernel'
+    (force the kernel route; its plain versions on CPU) or 'torch'
+    (``lm_solve`` / ``lm_solve_global``).  Dispatches are tagged by route
+    (``cuda-fused``, ``cuda-gathered``, ``cuda-block``, ``cuda-tied``,
+    ``cuda-torch``), those of constrained buckets with their kind too:
+    ``cuda-fused-rigid``, ``cuda-torch-penalty``, ...; buckets with slots
+    tied across lanes add ``-global``: ``cuda-tied-global``,
+    ``cuda-tied-rigid-global`` (``cuda-torch-global`` on the plain
+    route).
 
     A rigid constraint with ``dist_mode='global'`` (``dimer_global()``)
     fits ONE distance for the whole video: after the per-dispatch fits,

@@ -8,7 +8,9 @@ alternating two exact solves until they stop moving:
 1. **Joint-within-dispatch refit** — every sampled cluster is refit by
    ``refine_leastsq`` with the trained slots in 'global' mode, so each
    bucket dispatch solves its shared parameters jointly with the
-   per-cluster ones (``ops/lm.py::lm_solve_global``, on the device).
+   per-cluster ones, on the device (on CUDA one launch of
+   ``csrc/tied_lm.cu``, ``ops/tied_lm.py``; else
+   ``ops/lm.py::lm_solve_global``).
 2. **Exact cross-bucket global step** — at the fitted per-cluster
    parameters, the Gauss–Newton normal equations of the joint
    (unnormalized) residual with respect to the shared slots are pooled

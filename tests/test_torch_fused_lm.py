@@ -198,7 +198,7 @@ def test_wrapper_refuses_other_devices():
     (40, {}, False, (228, 228), "block"),            # V = 120: config 5's
     (43, {}, False, (228, 228), None),               # V = 129: past the cap
     (8, {}, False, (600, 600), None),                # past the window cap
-    (2, {}, True, (13, 13), None),                   # global-tied slots
+    (2, {}, True, (13, 13), "tied"),                 # tied, V = 9
     (8, {}, True, (32, 32), None),                   # tied, V = 24
     (2, {}, False, (600, 600), None),                # past the window cap
     (2, {"signal": "const", "y": "const", "x": "const"}, False, (13, 13),

@@ -173,17 +173,28 @@ def test_lm_solve_global_reports_lane_cost_and_own_iterations():
 
 
 def test_global_buckets_take_no_kernel():
-    """A bucket with a tied slot or a globally shared distance runs
-    lm_solve_global: kernel_route names no kernel, and lm_backend='kernel'
-    is refused for it."""
+    """A bucket with a tied slot or a globally shared distance takes the
+    tied route where csrc/tied_lm.cu takes it: kernel_route names 'tied'
+    for train_leastsq's inv_series_2 layout.  A tied bucket of 20 kernel
+    slots or more keeps no kernel route (lm_solve_global), and
+    lm_backend='kernel' is refused for it."""
     model = get_model("inv_series_2")
     lay = build_layout(model, 2, True, 2, {"size": "const"})
     assert lay.global_slots.any()
-    assert kernel_route(model, lay, True, None, (13, 13)) is None
-    f, img, _ = _train_scene()
+    assert kernel_route(model, lay, True, None, (13, 13)) == "tied"
+    big = get_model("inv_series_8")
+    lay20 = build_layout(big, 2, True, 3, {"size": "var"})
+    assert lay20.global_slots.any() and lay20.n_slots == 20
+    assert kernel_route(big, lay20, True, None, (20, 20)) is None
+    img = np.zeros((64, 64))
+    pos = artificial.draw_cluster(img, (32, 32), size=2.0, separation=5.0,
+                                  n=3, signal=180.0)
+    f = pd.DataFrame(pos, columns=["y", "x"])
+    f["frame"], f["signal"], f["size"] = 0, 180.0, 2.0
     with pytest.raises(ValueError, match="global-tied slots True"):
         refine_cpu(f, img, diameter=11, separation=6,
-                   fit_function="inv_series_2", lm_backend="kernel")
+                   fit_function="inv_series_8", param_mode={"size": "var"},
+                   lm_backend="kernel")
 
 
 def _train_scene():

@@ -283,6 +283,58 @@ def test_footprint_reference_matches(case):
         assert any(rms_32[c] != rms_t[c] for c in rms_t)
 
 
+@pytest.mark.parametrize("shape,full", [
+    ((64, 64), True), ((252, 256), True), ((256, 256), False),
+    ((512, 512), False), ((1024, 1024), False), ((16, 40, 40), True),
+    ((64, 64, 64), False)])
+def test_footprint_floor_takes_every_pixel_of_small_frames(shape, full):
+    """The frame's noise floor of ``_old_rms_on_footprint`` comes from
+    every pixel where the 4×-strided sample would hold fewer than
+    ``_FULL_STATS_BELOW`` (4,096), as the threshold statistics do;
+    configs 2 and 5 (512², 1024²) take the strided sample either way, and
+    ``None`` (this module's fixture) is the reference's strided sample on
+    every frame (its pipeline.py:1076-1081)."""
+    res = np.arange(int(np.prod(shape)), dtype=np.float32).reshape(shape)
+    strided = res[(slice(None, None, 4),) * len(shape)]
+    assert np.array_equal(tp._floor_sample(res), strided)
+    keep, tp._FULL_STATS_BELOW = tp._FULL_STATS_BELOW, 4096
+    try:
+        got = tp._floor_sample(res)
+    finally:
+        tp._FULL_STATS_BELOW = keep
+    assert np.array_equal(got, res if full else strided)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_footprint_noise_floor_of_a_small_frame_is_the_frames(ndim):
+    """On the small footprint scenes, with ``_FULL_STATS_BELOW = 4096``,
+    every cluster's noise is floored at the MAD of every pixel of the
+    frame; the strided sample, made to read a brighter floor, floors it
+    higher, as the reference does."""
+    g, res, cols = _footprint_case(ndim)
+    res = res.copy()
+    res[(slice(None, None, 4),) * ndim] *= 3.0
+    diameter = 9 if ndim == 2 else (5, 9, 9)
+    _, noise_ref = tp._old_rms_on_footprint(
+        g, [torch.as_tensor(res)], diameter, cols, "frame")
+    keep, tp._FULL_STATS_BELOW = tp._FULL_STATS_BELOW, 4096
+    try:
+        _, noise = tp._old_rms_on_footprint(
+            g, [torch.as_tensor(res)], diameter, cols, "frame")
+    finally:
+        tp._FULL_STATS_BELOW = keep
+    floor = 1.4826 * float(np.median(np.abs(res - np.median(res))))
+    sub = res[(slice(None, None, 4),) * ndim]
+    floor_ref = 1.4826 * float(np.median(np.abs(sub - np.median(sub))))
+    assert floor_ref > 1.5 * floor
+    sig = g.groupby("cluster")["signal"].agg(lambda s: np.abs(s).max())
+    assert any(noise[c] < noise_ref[c] for c in noise)
+    for c in noise:
+        assert noise[c] * sig[c] >= floor * (1 - 1e-6)
+        assert noise_ref[c] * sig[c] >= floor_ref * (1 - 1e-6)
+        assert noise[c] <= noise_ref[c]
+
+
 # --------------------------------------------------------- residual reader
 
 @pytest.mark.parametrize("kind", ["iso", "aniso", "ring"])
