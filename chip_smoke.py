@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gauss-kernels DIR [--save FILE]
     python3 chip_smoke.py --gather-kernels DIR
     python3 chip_smoke.py --block-kernels DIR [--save FILE]
+    python3 chip_smoke.py --tied-kernels DIR [--save FILE]
     python3 chip_smoke.py --compare-saved FILE_A FILE_B
 
 ``--gauss-kernels`` times the gauss LM kernels of the port found under DIR
@@ -16,7 +17,10 @@ B=2,048 and 16,384 (kernel alone with L2 flushed, per call, host time per
 call).  ``--block-kernels`` times the block LM kernel found under DIR on
 three chain buckets (n = 8, 16 and 40; B = 256, 128 and 32; kernel alone
 with L2 flushed, per call, registers, blocks per SM); ``--save`` as
-above.
+above.  ``--tied-kernels`` times the tied LM kernel found under DIR on
+three synthetic tied buckets ([train]'s and [global]'s first tied
+launches and a stride bucket of 4,096 lanes), each design forced in turn,
+with the SM-cycle split of one joint iteration; ``--save`` as above.
 
 Drives the port (``clustertracking_tpu_torch``; no JAX) through its main
 paths, the bucketed cluster fit and the pipelines around it, at the
@@ -110,7 +114,10 @@ each:
               wall, window_gather bit-equal to gather_stack on the first
               global bucket's windows and timed, the n-gon fused_lm_2d vs
               plain on the fixed-distance refit's first launch, and
-              tied_lm vs plain on the first tied launch, as in train;
+              tied_lm vs plain on the first tied launch, as in train, and
+              on a synthetic bucket of 4,096 lanes, whose warps stride
+              over two lanes each on the tile sweep (each line gives the
+              launch's plan);
 20. find    — the device label propagation (float64) at separation 6 on
               config 5's first frame of locate candidates (4 frames of
               1024×1024, 5,000 dimers, seed 5: benchmarks/suite.py's
@@ -410,17 +417,29 @@ def phase_build():
         # (D, streamed, profile, pose, slot ceiling; fused_lm_2d: profile,
         # pose, slot ceiling) = registers/warps per SM that they allow
         # window_gather and block_lm (D, profile): 256 threads per block
-        # (kThreads in the .cu); tied_lm (D, profile, pose): 128
+        # (kThreads in the .cu); tied_lm (D, profile, pose, slot ceiling):
+        # its CTA's warps by the ceiling (ops/tied_lm.py's CTA_WARPS)
         entries = _ptxas_entries(report)
-        wpb = {"window_gather": 8, "block_lm": 8, "tied_lm": 4}.get(name, 1)
+        wpb = {"window_gather": 8, "block_lm": 8}.get(name, 1)
         regs = " ".join(
             ",".join(_template_args(e))
-            + f"={r}/{_warps_by_registers(r, wpb)}" for e, r, _ in entries)
+            + f"={r}/{_warps_by_registers(r, _cta_warps(name, e, wpb))}"
+            for e, r, _ in entries)
         spills = [f"{','.join(_template_args(e))}: {b} bytes"
                   for e, _, b in entries if b]
         print(f"[build] {name}: nvcc {nvcc_s:.1f} s, load {wall:.1f} s; "
               f"registers/warps per SM {regs or 'cached build'}; spilling: "
               f"{spills or 'none'}", flush=True)
+
+
+def _cta_warps(name, entry, default):
+    """Warps of a kernel's block: tied_lm's by its slot ceiling (the last
+    template argument), the others' ``default``."""
+    if name != "tied_lm":
+        return default
+    from clustertracking_tpu_torch.ops.tied_lm import CTA_WARPS
+
+    return CTA_WARPS[int(_template_args(entry)[-1])]
 
 
 def _first_round_inputs(batch, device):
@@ -2380,14 +2399,15 @@ class _FirstTied:
                 f"slots {[c[1] for c in self.calls]}")
 
 
-def _tied_replay(first, what, smi):
+def _tied_replay(first, what, smi, label="the first tied launch"):
     """tied_lm vs tied_lm_reference on a main path's first tied launch
-    (``_FirstTied``), on the card: the tied slots within rtol TIED_RTOL,
-    positions within POS_ATOL, per-lane cost within COST_RTOL where rms ≥
-    RMS_FLOOR, converged equal on AGREE_FRAC of the lanes (``_agreement``),
-    the joint cost within TIED_RTOL, two kernel runs bit-equal; the kernel
-    alone with L2 flushed, per call, its bound.  Returns the kernels-line
-    entry without its launches."""
+    (``_FirstTied``, or any object with ``args`` and ``kw``), on the card:
+    the tied slots within rtol TIED_RTOL, positions within POS_ATOL,
+    per-lane cost within COST_RTOL where rms ≥ RMS_FLOOR, converged equal
+    on AGREE_FRAC of the lanes (``_agreement``), the joint cost within
+    TIED_RTOL, two kernel runs bit-equal; the launch's plan, the kernel
+    alone with L2 flushed, per call, its bound.  Returns the
+    kernels-line entry without its launches."""
     import torch
 
     from clustertracking_tpu_torch.ops.rigid import rigid_kernel_slots
@@ -2400,7 +2420,7 @@ def _tied_replay(first, what, smi):
     res_p, plain_ms = _timed(lambda: tied_lm_reference(*args, **kw))
     res_k = tied_lm(*args, **kw)
     iters = int(tied_lm.last_iterations.item())
-    grid = tied_lm.last_grid
+    plan = tied_lm.last_plan
     again = tied_lm(*args, **kw)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(res_k, again))
@@ -2432,11 +2452,14 @@ def _tied_replay(first, what, smi):
                              name="tied_lm_kernel")
     Vk = kw["global_slots"].size if con is None else len(
         rigid_kernel_slots(layout, con)[1])
-    print(f"[{what}] {smi}: tied_lm vs plain on the first tied launch "
+    print(f"[{what}] {smi}: tied_lm vs plain on {label} "
           f"(B={B} lanes, {int(valid.sum())} valid, x {Vk} kernel slots, "
           f"{len(tied)} tied; window {kw['window_shape']}, profile "
           f"{kw['model'].name}{', ' + con.name if con else ''}; one "
-          f"launch a call, {grid} blocks of 4 warps, {iters} joint "
+          f"launch a call, {plan['ctas']} CTAs of {plan['warps']} warps, up "
+          f"to {plan['lanes_per_warp']} lanes a warp, slot ceiling "
+          f"{plan['slot_ceiling']}, {plan['smem_bytes']} bytes shared; "
+          f"{iters} joint "
           f"iterations): {_fmt(a)}; tied slots max rel {tied_rel:.3e}, "
           f"joint cost {jk:.7f} against {jp:.7f} (rel {joint_rel:.3e}), two "
           f"kernel runs bit-equal: {same}; kernel {alone:.4f} ms alone with "
@@ -2596,6 +2619,13 @@ def phase_global(frames, truth, raw, device, smi):
     entry = _replay(first, "global", smi)
     gather = _gather_replay(gathered, "global", smi)
     tied_entry = _tied_replay(tied, "global", smi)
+    # more lanes than the grid has warps: each warp strides over two, on
+    # the tile sweep
+    stride = type("Bucket", (), {})()
+    stride.args, stride.kw = _tied_bucket("stride", device)
+    _tied_replay(stride, "global", smi, label="a synthetic bucket of 4,096 "
+                 "lanes (_tied_bucket)")
+    del stride
     print(f"[global] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return (dict(launches=first.launches[True], **entry),
@@ -4357,11 +4387,292 @@ def block_kernels(root, save=None):
         np.savez(save, **kept)
 
 
+# name: (model, n, param modes, constraint, B, size, diameter); the
+# window follows as refine.py sizes it (separation 6 px, 64×64 frames).
+# [train]'s and [global]'s first tied launches, 4,096 lanes of [train]'s
+# layout, and buckets at slot ceilings 10 (V = 9, 3 tied) and 14 (V = 11)
+TIED_BUCKETS = (
+    ("train", "inv_series_2", 1, {"size": "const"}, False, 256, 2.0, 11),
+    ("global", "gauss", 2, {"size": "const"}, True, 1472, 1.6, 9),
+    ("stride", "inv_series_2", 1, {"size": "const"}, False, 4096, 2.0, 11),
+    ("ceil10", "inv_series_2", 2, {"size": "global"}, False, 256, 2.0, 11),
+    ("ceil14", "inv_series_2", 3, {"size": "const"}, False, 256, 2.0, 11),
+)
+
+
+def _tied_bucket(name, device, seed=14, B=None):
+    """A synthetic tied bucket of TIED_BUCKETS as the bucket solver builds
+    it: each lane a cluster (one feature, or a dimer 5 px long) in its own
+    64×64 frame, rendered by the model with noise σ=1 on signal 180, the
+    fit started 0.3 px off, its signals 15% off, its extras (and a rigid
+    dimer's distance) near their truth; the last lane invalid.  Returns
+    the tied_lm (args, kw) on ``device``."""
+    import torch
+
+    from clustertracking_tpu_torch.constraints import (
+        dimer_global, positions_to_pose)
+    from clustertracking_tpu_torch.models import build_layout, get_model
+    from clustertracking_tpu_torch.ops.gather import (
+        gather_stack, origins_for, radius_mask)
+    from clustertracking_tpu_torch.ops.residual import make_model_fns
+    from clustertracking_tpu_torch.ops.rigid import make_constrained_fns
+    from clustertracking_tpu_torch.refine import (
+        _slot_bounds, _tied_slots, _window_shape)
+
+    _, model_name, n, modes, rigid, B_named, size, diameter = next(
+        c for c in TIED_BUCKETS if c[0] == name)
+    B = B or B_named
+    rng = np.random.default_rng(seed)
+    model = get_model(model_name)
+    con = dimer_global(ndim=2) if rigid else None
+    lay = build_layout(model, 2, True, n, modes)
+    shape = (64, 64)
+    radius = (diameter / 2.0,) * 2
+    window = _window_shape(n, 2, radius, (6.0, 6.0), shape)
+    names = lay.param_names
+    extras = {"coeff_1": 0.8, "coeff_2": 0.25}
+    truth = np.zeros((B, n, lay.n_params), np.float32)
+    ang = rng.uniform(0, np.pi, B)
+    center = np.asarray(shape, float) / 2 + rng.uniform(-2, 2, (B, 2))
+    for i in range(n):
+        pos = center + (i - (n - 1) / 2) * 5.0 * np.stack(
+            [np.sin(ang), np.cos(ang)], 1)
+        row = dict(extras, background=2.0, signal=180.0, size=size)
+        for k, nm in enumerate(names):
+            truth[:, i, k] = (pos[:, "yx".index(nm)] if nm in "yx"
+                              else row[nm])
+    t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    fvalid = np.ones((B, n), np.float32)
+    image = make_model_fns(model, lay, shape,
+                           device=device).image_from_params
+    frames = image(t(truth), t(np.zeros((B, 2), np.int32)), t(fvalid))
+    frames = frames.reshape((B,) + shape) + t(rng.normal(
+        0.0, 1.0, (B,) + shape).astype(np.float32))
+    params = truth.copy()
+    pos_idx = list(lay.pos_param_idx)
+    params[..., pos_idx] += rng.uniform(-0.3, 0.3, (B, n, 2))
+    params[..., lay.signal_param_idx] *= rng.uniform(0.85, 1.15, (B, n))
+    for extra in model.extra_params:
+        params[..., names.index(extra)] = (
+            extras[extra] * 0.7 + rng.uniform(-0.05, 0.05, (B, 1)))
+    valid = np.ones(B, bool)
+    valid[-1] = False
+    params_t = t(params)
+    if con is None:
+        vect0 = lay.vect_from_params(params_t)
+        pos_at = params_t[..., pos_idx].contiguous()
+    else:
+        pose0 = positions_to_pose(params[..., pos_idx].astype(float), con)
+        pose0[:, -1] *= rng.uniform(0.8, 1.2, B)
+        pose0[:, 2] += rng.uniform(-0.3, 0.3, B)
+        cfns = make_constrained_fns(model, lay, window, con, device=device)
+        vect0 = cfns.vect_of(params_t, t(pose0.astype(np.float32)))
+        pos_at = cfns.positions_of(vect0, params_t).contiguous()
+    origin = origins_for(pos_at, window, shape)
+    pixels = gather_stack(frames, t(np.arange(B, dtype=np.int32)), origin,
+                          window)
+    fv = None if con is not None else t(fvalid)
+    mask = radius_mask(pos_at, origin, window, radius, fvalid=fv)
+    norm = torch.clamp(torch.amax(params_t[..., lay.signal_param_idx].abs(),
+                                  dim=1), min=1e-6)
+    lo, hi = _slot_bounds(lay, window, shape, (), con)
+    args = (vect0.contiguous(), params_t, pixels, mask, origin, norm,
+            t(valid), fv)
+    kw = dict(model=model, layout=lay, window_shape=window,
+              global_slots=_tied_slots(lay, con), lo=lo, hi=hi, max_iter=60,
+              constraint=con)
+    return args, kw
+
+
+# buckets and lanes timed at their slot ceiling's register sweep and on
+# the tile
+TIED_CEILINGS = (("train", 256), ("train", 2048), ("ceil10", 256),
+                 ("ceil10", 2048), ("ceil14", 256), ("ceil14", 2048))
+# seeds of [global]'s bucket held to the plain version besides the first
+TIED_SEEDS = (15, 16, 17, 18)
+# tied_lm_clocks' columns after the first (in all) and before the last
+# (iterations)
+TIED_CLOCKS = ("A solves", "A tie partials", "wait 1", "B means",
+               "B sweeps", "B sweep partials", "wait 2", "C adds+decision")
+
+
+def _tied_vs_plain(tl, args, kw, res, res_p):
+    """(max |dpos|, tied slots max rel, joint cost rel, converged equal)
+    of a tied_lm result against the plain version's."""
+    from clustertracking_tpu_torch.ops.rigid import make_constrained_fns
+
+    layout, con = kw["layout"], kw["constraint"]
+    if con is None:
+        pos = sorted({int(s) for p in layout.pos_param_idx
+                      for s in layout.slot_idx[:, p]})
+        dpos = float((res.x[:, pos] - res_p.x[:, pos]).abs().max())
+    else:
+        cfns = make_constrained_fns(kw["model"], layout, kw["window_shape"],
+                                    con, device=res.x.device)
+        dpos = float((cfns.positions_of(res.x, args[1])
+                      - cfns.positions_of(res_p.x, args[1])).abs().max())
+    tied = np.flatnonzero(kw["global_slots"])
+    xk = res.x[:, tied].double().cpu().numpy()
+    xp = res_p.x[:, tied].double().cpu().numpy()
+    tied_rel = float(np.max(np.abs(xk - xp) / np.maximum(np.abs(xp),
+                                                         1e-30)))
+    valid = args[6].cpu().numpy()
+    jk = float(res.cost.double().cpu().numpy()[valid].sum())
+    jp = float(res_p.cost.double().cpu().numpy()[valid].sum())
+    conv = float((res.converged == res_p.converged).float().mean())
+    return dpos, tied_rel, abs(jk - jp) / max(jp, 1e-30), conv
+
+
+def _tied_clocks(tl, args, kw, **extra):
+    """tied_lm_clocks' mean SM cycles of one iteration by column, the
+    slowest CTA's in all, and the result."""
+    import torch
+
+    res, clk = tl.tied_lm_clocks(*args, **extra, **kw)
+    torch.cuda.synchronize()
+    c = clk.double().cpu().numpy()
+    n_it = max(c[0, -1], 1.0)
+    return c[:, 1:-1].mean(0) / n_it, c[:, 0].max() / n_it, len(c), res
+
+
+def tied_kernels(root, save=None):
+    """The tied LM kernel of the port found under ``root`` (this checkout,
+    or another one such as the parent commit's), timed on one card on the
+    synthetic buckets of TIED_BUCKETS (``_tied_bucket``): [train]'s first
+    tied launch (256 lanes, inv_series_2, 14×14, V = 5, 2 tied),
+    [global]'s (1,472 n-gon dimers, 18×18, V = 6, the distance tied), a
+    stride bucket of 4,096 lanes and one bucket each at slot ceilings 10
+    and 14.  Per bucket: kernel alone (torch.profiler, L2 flushed before
+    each launch) and per call, the joint iterations, the bound, the plain
+    version's time and agreement (reported, not gated), registers and
+    spills by instantiation; where the checkout has ``tied_lm_clocks``,
+    the SM-cycle split of one iteration (thread 0 of each CTA, mean over
+    the CTAs).  Where ``tied_lm_clocks`` takes a ``ceiling``, the buckets
+    of TIED_CEILINGS run at their slot ceiling's register sweep and on the
+    tile, both with clocks, kernel alone; and [global]'s bucket at the
+    seeds of TIED_SEEDS is held to the plain version.  ``save`` keeps each
+    bucket's per-lane x, cost, n_iter and npix for ``--compare-saved``.
+    One line per bucket."""
+    import importlib
+    import inspect
+
+    sys.path.insert(0, root)
+    import torch
+
+    from clustertracking_tpu_torch.ops import _build
+
+    tl = importlib.import_module("clustertracking_tpu_torch.ops.tied_lm")
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    _build._lib_path("tied_lm").unlink(missing_ok=True)   # nvcc's report
+    t0 = time.perf_counter()
+    _build.build_kernels(("tied_lm",))
+    build_s = time.perf_counter() - t0
+    regs = {",".join(_template_args(e)): (r, b) for e, r, b in
+            _ptxas_entries(_build.build_log("tied_lm")[1])}
+    clocked = hasattr(tl, "tied_lm_clocks")
+    ceilings = clocked and "ceiling" in inspect.signature(
+        tl.tied_lm_clocks).parameters
+    kept = {}
+    for name, *_ in TIED_BUCKETS:
+        args, kw = _tied_bucket(name, "cuda")
+        valid = args[6].cpu().numpy()
+        tl.tied_lm_reference(*args, **kw)   # warm-up: the first call's
+        res_p, plain_ms = _timed(lambda: tl.tied_lm_reference(*args, **kw))
+        res = tl.tied_lm(*args, **kw)
+        again = tl.tied_lm(*args, **kw)
+        torch.cuda.synchronize()
+        iters = int(tl.tied_lm.last_iterations.item())
+        grid = tl.tied_lm.last_grid
+        plan = getattr(tl.tied_lm, "last_plan", None)
+        plan = "" if plan is None else f" ({plan})"
+        same = all(torch.equal(a, b) for a, b in zip(res, again))
+        dpos, tied_rel, joint_rel, conv = _tied_vs_plain(tl, args, kw, res,
+                                                         res_p)
+        alone = _kernel_alone_ms(lambda: tl.tied_lm(*args, **kw), 10,
+                                 name="tied_lm_kernel")
+        per_call = _cuda_ms(lambda: tl.tied_lm(*args, **kw), 10)
+        bound = _lm_bound(res, args, kw,
+                          sweeps=np.where(valid, iters + 2, 1),
+                          solves=np.where(valid, iters, 0))["bound_ms"]
+        clocks = ""
+        if clocked:
+            per_it, slowest, nc, res_c = _tied_clocks(tl, args, kw)
+            check(torch.equal(res_c.x, res.x), f"{name}: clocked run differs")
+            clocks = (f"; SM cycles an iteration (thread 0, mean of {nc} "
+                      f"CTAs; slowest CTA {slowest:.0f} in all): "
+                      + ", ".join(f"{k} {v:.0f}" for k, v in zip(TIED_CLOCKS,
+                                                                 per_it))
+                      + f" (sum {per_it.sum():.0f})")
+        for f in ("x", "cost", "n_iter", "npix"):
+            kept[f"{name}/{f}"] = getattr(res, f).cpu().numpy()
+        con = kw["constraint"]
+        print(f"[tied_kernels] {root}: {name} (B={len(valid)}, "
+              f"{int(valid.sum())} valid, window {kw['window_shape']}, "
+              f"profile {kw['model'].name}{', ' + con.name if con else ''}, "
+              f"{int(np.sum(kw['global_slots']))} tied; mean in-mask npix "
+              f"{float(args[3].sum(1).mean()):.1f}) {grid} blocks{plan}: "
+              f"kernel alone {alone:.4f} ms, per call {per_call:.4f} ms, "
+              f"{iters} joint iterations "
+              f"({1e3 * alone / max(iters + 1, 1):.2f} µs an iteration), "
+              f"bound {bound:.5f} ms ({alone / bound:.0f}x), plain "
+              f"{plain_ms:.1f} ms; vs plain max |dpos| {dpos:.3e}, tied rel "
+              f"{tied_rel:.3e}, joint cost rel {joint_rel:.3e}, converged "
+              f"equal {conv:.5f}; two runs bit-equal {same}{clocks}",
+              flush=True)
+        del args
+        torch.cuda.empty_cache()
+    if ceilings:
+        for name, B in TIED_CEILINGS:
+            args, kw = _tied_bucket(name, "cuda", B=B)
+            line = []
+            out = {}
+            for label, extra in (("register", {}), ("tile", {"ceiling": 0})):
+                per_it, _, _, out[label] = _tied_clocks(tl, args, kw,
+                                                        **extra)
+                plan = tl.tied_lm.last_plan
+                iters = int(tl.tied_lm.last_iterations.item())
+                alone = _kernel_alone_ms(
+                    lambda: tl.tied_lm_clocks(*args, **extra, **kw), 10,
+                    name="tied_lm_kernel")
+                line.append(
+                    f"{label} (ceiling {plan['slot_ceiling']}, "
+                    f"{plan['ctas']} CTAs of {plan['warps']} warps, "
+                    f"{plan['lanes_per_warp']} lanes a warp) {alone:.4f} ms,"
+                    f" {iters} iterations, {1e3 * alone / (iters + 1):.2f} "
+                    f"µs an iteration, SM cycles an iteration: A solves "
+                    f"{per_it[0]:.0f}, B sweeps {per_it[4]:.0f}, sum "
+                    f"{per_it.sum():.0f}")
+            dx = float((out["register"].x - out["tile"].x).abs().max())
+            print(f"[tied_kernels] {root}: slot ceiling, {name} B={B}, "
+                  f"V={args[0].shape[1]}, kernel alone with clocks: "
+                  + "; ".join(line) + f"; max |dx| between them {dx:.3e}",
+                  flush=True)
+            del args
+        for seed in TIED_SEEDS:
+            args, kw = _tied_bucket("global", "cuda", seed=seed)
+            res_p = tl.tied_lm_reference(*args, **kw)
+            res = tl.tied_lm(*args, **kw)
+            dpos, tied_rel, joint_rel, conv = _tied_vs_plain(tl, args, kw,
+                                                             res, res_p)
+            print(f"[tied_kernels] {root}: global seed {seed}: "
+                  f"{int(tl.tied_lm.last_iterations.item())} joint "
+                  f"iterations; vs plain max |dpos| {dpos:.3e}, tied rel "
+                  f"{tied_rel:.3e}, joint cost rel {joint_rel:.3e}, "
+                  f"converged equal {conv:.5f}", flush=True)
+            del args
+    print(f"[tied_kernels] {root}: build {build_s:.1f} s; registers/spill "
+          f"bytes by instantiation {regs}", flush=True)
+    if save:
+        np.savez(save, **kept)
+
+
 def compare_saved(file_a, file_b):
     """Share of lanes on which two ``--save`` files agree bit for bit, per
     kernel: x, cost and n_iter together, and npix."""
     a, b = np.load(file_a), np.load(file_b)
-    for key in sorted(k[:-2] for k in a.files if k.endswith("/x")):
+    for key in sorted(k[:-2] for k in a.files
+                      if k.endswith("/x") and k in b.files):
         xa, xb = a[key + "/x"], b[key + "/x"]
         same = ((xa.view(np.int32) == xb.view(np.int32)).all(axis=1)
                 & (a[key + "/cost"].view(np.int32)
@@ -4384,6 +4695,10 @@ if __name__ == "__main__":
         rest = sys.argv[2:]
         save = rest[rest.index("--save") + 1] if "--save" in rest else None
         block_kernels(rest[0] if rest and rest[0] != "--save" else ".", save)
+    elif sys.argv[1:2] == ["--tied-kernels"]:
+        rest = sys.argv[2:]
+        save = rest[rest.index("--save") + 1] if "--save" in rest else None
+        tied_kernels(rest[0] if rest and rest[0] != "--save" else ".", save)
     elif sys.argv[1:2] == ["--gather-kernels"]:
         gather_kernels(sys.argv[2] if len(sys.argv) > 2 else ".")
     elif sys.argv[1:2] == ["--compare-saved"]:

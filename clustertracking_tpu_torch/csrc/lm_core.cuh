@@ -618,7 +618,10 @@ __device__ inline void reduce_items(float (&a)[NP], int lane, int n_items,
 // One residual + Jacobian sweep at x (shared, length V): writes the items
 // (cost, g, the upper triangle of H) into acc (shared).  VM > 0: register
 // accumulators; VM = 0: the shared tile, lanes owning items (iu, iv).
-template <int D, int Prof, int Pose, int VM, class Pixels>
+// Fma: each product is added by a fused multiply-add (the product exact,
+// one rounding an add), as the plain version's einsum (a cuBLAS GEMM)
+// forms cost, g and H; otherwise a rounded product, then the add.
+template <int D, int Prof, int Pose, int VM, class Pixels, bool Fma = false>
 __device__ void sweep(const Cluster& c, const float* x, float* sm,
                       const CoreLayout& L, float* acc, int lane,
                       const int* iu, const int* iv, int n_items,
@@ -674,7 +677,7 @@ __device__ void sweep(const Cluster& c, const float* x, float* sm,
 #pragma unroll
               for (int u = 0; u <= v; ++u) {
                 float& s = a[v * (v + 1) / 2 + u];
-                s = s + z[u] * z[v];
+                s = Fma ? __fmaf_rn(z[u], z[v], s) : s + z[u] * z[v];
               }
             }
           }
@@ -703,7 +706,10 @@ __device__ void sweep(const Cluster& c, const float* x, float* sm,
         if (lane + 32 * j < n_items) {
           const int u = iu[j], v = iv[j];
           float s = 0.f;
-          for (int r = 0; r < 32; ++r) s += jb[r * kJStride + u] * jb[r * kJStride + v];
+          for (int r = 0; r < 32; ++r) {
+            const float zu = jb[r * kJStride + u], zv = jb[r * kJStride + v];
+            s = Fma ? __fmaf_rn(zu, zv, s) : s + zu * zv;
+          }
           a[j] += s;
         }
       }

@@ -10,13 +10,14 @@ for it.  Here:
 
 - ``tied_lm`` is the wrapper.  On CUDA tensors it launches the
   hand-written kernel ``csrc/tied_lm.cu`` (built for sm_90a on first use;
-  the whole joint loop in one cooperative launch, one warp per lane, every
-  built-in profile, the rigid poses of ``csrc/lm_core.cuh`` with their
-  fitted distance tied) and counts the launch in ``tied_lm.launches``; on
-  CPU tensors it returns the plain version's result.  It raises on
-  anything the kernel does not take, when the build or the launch fails,
-  and when the card cannot hold the cooperative grid; it never swaps in
-  the plain version for a CUDA tensor.
+  the whole joint loop in one launch, every built-in profile, the rigid
+  poses of ``csrc/lm_core.cuh`` with their fitted distance tied) and
+  counts the launch in ``tied_lm.launches``; on CPU tensors it returns
+  the plain version's result.  ``launch_plan`` lays the launch out: a
+  cooperative grid of one CTA an SM, each warp owning a fixed set of
+  lanes.  It raises on anything the kernel does not take, when the build
+  or the launch fails, and when the card cannot hold the grid; it never
+  swaps in the plain version.
 - ``tied_lm_reference`` is the plain PyTorch version: the call the bucket
   solver's plain route makes, ``ops/lm.py::lm_solve_global_shards`` on
   one ``GlobalShard`` with the bucket's ``make_model_fns`` (or, rigid,
@@ -46,13 +47,16 @@ import torch
 
 from ..models.packing import param_names_for
 from .lm import GlobalShard, LMResult, lm_solve_global_shards
-from .pixel_lm import MODEL_ARGTYPES, KernelProblem, profile_tag
+from .pixel_lm import (_CUDA_MAX_FEATURES, _CUDA_MAX_SLOTS, MODEL_ARGTYPES,
+                       KernelProblem, _pose_words, _staged_extras,
+                       profile_tag)
 from .residual import make_model_fns
 from .rigid import make_constrained_fns, rigid_kernel_slots, rigid_supported
 from .window_gather import check_tensor
 
-__all__ = ["TIED_MAX_SLOTS", "check_tied_lm_args", "max_blocks",
-           "pack_tied", "tie_supported", "tied_lm", "tied_lm_reference"]
+__all__ = ["TIED_MAX_SLOTS", "check_tied_lm_args", "launch_plan",
+           "pack_tied", "slot_ceiling", "tie_supported", "tied_lm",
+           "tied_lm_clocks", "tied_lm_reference"]
 
 # Kernel slots a tied bucket may have: fewer than lm_core.cuh's kMaxSlots
 # (a tied bucket of 20 slots or more takes lm_solve_global).
@@ -179,15 +183,108 @@ def check_tied_lm_args(vect0, const_params, pixels, mask, origin, norm,
     check_tensor(who, "fvalid", fvalid, f32, (B, n), device)
 
 
+# csrc/tied_lm.cu's plan constants: a CTA's shared memory on an H100, the
+# warps of a CTA by slot ceiling (lm_core.cuh's 8, 10, 14, 0 = the tile;
+# one CTA an SM at the registers each sweep needs) and each ceiling's J
+# tile in words
+SMEM_MAX = 232448
+CTA_WARPS = {8: 12, 10: 8, 14: 8, 0: 16}
+_J_WORDS = {8: 4 * 32 * 9, 10: 3 * 32 * 11, 14: 2 * 32 * 15, 0: 32 * 21}
+_CLOCKS = 10
+
+
+def slot_ceiling(V):
+    """lm_core.cuh's slot ceiling of V kernel slots: a register sweep
+    (8, 10, 14) or the tile (0)."""
+    return next((c for c in (8, 10, 14) if V <= c), 0)
+
+
+def _smem_words(vm, V, G, ndim, profile, pose, W, lpw, state_smem, pool):
+    """``smem_layout`` of csrc/tied_lm.cu in 4-byte words (slot ceiling
+    vm, W warps)."""
+    K = (V + 1) * (V + 2) // 2
+    NS = 1 + G + G * (G + 1) // 2
+    nx = _staged_extras(profile)
+    core = (_J_WORDS[vm] + (_CUDA_MAX_SLOTS + 1) * (_CUDA_MAX_SLOTS + 2) // 2
+            + _CUDA_MAX_SLOTS
+            + _CUDA_MAX_FEATURES * (2 + 2 * ndim + nx) + 1
+            + _CUDA_MAX_FEATURES * (1 + 2 * ndim + nx) + _pose_words(pose))
+    core += core & 1
+    words = (2 * (_CLOCKS + 1) + 2 * W * NS + 2 * G + 2 * NS
+             + W * core + 2 * W + 2 + 2 * NS + G + 4 + NS + V)
+    words += words & 1
+    if state_smem:
+        words += W * lpw * (2 * V + 2 * K + 4)
+    return words + W * pool
+
+
+def launch_plan(B, V, window, ndim, profile, pose, G, sms=132,
+                ceiling=None):
+    """How ``csrc/tied_lm.cu`` runs a bucket of B lanes, V kernel slots, G
+    of them tied, on a card of ``sms`` SMs: a dict of ``ctas`` (the
+    cooperative grid's, one an SM), ``warps`` (a CTA's),
+    ``lanes_per_warp``, ``state_in_shared`` (the lanes' x and items in
+    shared memory, else in global scratch), ``pool_words`` (each warp's
+    pixel pool, ints), ``smem_bytes`` (a CTA's) and ``slot_ceiling``.  The
+    grid takes as many CTAs as the card has SMs, up to one a lane, deals
+    the lanes out CTA by CTA and gives a CTA a warp for each of its lanes
+    or for each joint sum (the cost, the tied g and H entries and two
+    maxima), whichever is more, up to CTA_WARPS.  The sweep is V's
+    register one (``slot_ceiling(V)``) unless the tile's CTAs, which hold
+    more warps, give a warp fewer lanes: measured on an H100
+    (``chip_smoke.py --tied-kernels``), the register sweeps take 9–15%
+    less time an iteration than the tile at one lane a warp either way,
+    and the tile 20–27% less where it holds one lane a warp and they two.
+    ``ceiling`` forces a slot ceiling that holds V (0: the tile), for
+    measurement."""
+    if ceiling is not None:
+        return _layout(B, V, window, ndim, profile, pose, G, sms, ceiling)
+    plan = _layout(B, V, window, ndim, profile, pose, G, sms,
+                   slot_ceiling(V))
+    if plan["slot_ceiling"]:
+        tile = _layout(B, V, window, ndim, profile, pose, G, sms, 0)
+        if tile["lanes_per_warp"] < plan["lanes_per_warp"]:
+            return tile
+    return plan
+
+
+def _layout(B, V, window, ndim, profile, pose, G, sms, vm):
+    """``launch_plan`` at slot ceiling vm."""
+    if vm not in CTA_WARPS or 0 < vm < V:
+        raise ValueError(f"tied_lm: slot ceiling {vm} for {V} slots")
+    npix = int(np.prod(window))
+    ctas = max(min(B, sms), 1)
+    # a warp for each of a CTA's lanes, and one for each joint sum
+    W = min(CTA_WARPS[vm], max(-(-B // ctas), 3 + G + G * (G + 1) // 2))
+    lpw = max(-(-B // (ctas * W)), 1)
+    limit = SMEM_MAX // 4
+    base = _smem_words(vm, V, G, ndim, profile, pose, W, lpw, False, 0)
+    if base > limit:
+        raise ValueError(f"tied_lm: {4 * base} bytes of shared memory a CTA "
+                         f"> {SMEM_MAX}")
+    state_smem = _smem_words(vm, V, G, ndim, profile, pose, W, lpw, True,
+                             0) <= limit
+    rest = limit - _smem_words(vm, V, G, ndim, profile, pose, W, lpw,
+                               state_smem, 0)
+    pool = min(2 * lpw * npix, rest // W) & ~1
+    words = _smem_words(vm, V, G, ndim, profile, pose, W, lpw, state_smem,
+                        pool)
+    return dict(ctas=ctas, warps=W, lanes_per_warp=lpw,
+                state_in_shared=state_smem, pool_words=pool,
+                smem_bytes=4 * words, slot_ceiling=vm)
+
+
 _ARGTYPES = (
     [ctypes.c_void_p] * 12          # pixels .. hi
-    + [ctypes.c_void_p] * 10        # scratch: list .. part_max
+    + [ctypes.c_void_p] * 5         # scratch: list .. part_max
     + [ctypes.c_int] * 10           # B, n, P, V, G, iso, D, wz, wy, wx
     + [ctypes.c_int]                # max_iter
     + [ctypes.c_float] * 7          # ftol .. plateau
     + MODEL_ARGTYPES                # prof .. xn
     + [ctypes.c_void_p] * 5         # outputs, iterations
-    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]   # grid_out, stream
+    + [ctypes.c_void_p]             # clocks (or null)
+    + [ctypes.c_int] * 7            # vm, ctas, warps, lpw,
+    + [ctypes.c_void_p]             # state_smem, pool, smem; stream
 )
 
 
@@ -198,23 +295,7 @@ def _library():
     if lib.tied_lm_launch.argtypes is None:
         lib.tied_lm_launch.argtypes = _ARGTYPES
         lib.tied_lm_launch.restype = ctypes.c_int
-        lib.tied_lm_max_blocks.argtypes = [ctypes.c_int] * 3 + [
-            ctypes.POINTER(ctypes.c_int)]
-        lib.tied_lm_max_blocks.restype = ctypes.c_int
     return lib
-
-
-def max_blocks(ndim, profile, pose, device="cuda"):
-    """Blocks of ``csrc/tied_lm.cu`` (4 warps each, its kWarps) a CUDA
-    device holds at once for an instantiation: the largest grid a launch
-    takes."""
-    lib = _library()
-    out = ctypes.c_int(0)
-    with torch.cuda.device(torch.device(device)):
-        rc = lib.tied_lm_max_blocks(ndim, profile, pose, ctypes.byref(out))
-    if rc != 0:
-        raise RuntimeError(f"tied_lm: occupancy query failed, cudaError {rc}")
-    return out.value
 
 
 def tied_lm(vect0, const_params, pixels, mask, origin, norm, valid,
@@ -223,14 +304,43 @@ def tied_lm(vect0, const_params, pixels, mask, origin, norm, valid,
             lam_up=4.0, lam_down=0.25, lam_max=1e10, constraint=None):
     """The joint LM solve of one bucket (see the module docstring).
 
-    CUDA tensors launch ``csrc/tied_lm.cu``, one cooperative launch for
-    the whole loop (its grid in ``tied_lm.last_grid``, the joint loop's
-    iterations in the device tensor ``tied_lm.last_iterations``, for
-    measurement); CPU tensors get
-    ``tied_lm_reference``.  Raises ``ValueError`` on any other device and
-    on arguments the kernel does not take, ``NotImplementedError`` on CUDA
-    for a custom model, and ``RuntimeError`` when the kernel does not
-    build or launch, the cooperative grid included."""
+    CUDA tensors launch ``csrc/tied_lm.cu``, one launch for the whole loop,
+    as ``launch_plan`` lays it out (its dict in ``tied_lm.last_plan``, the
+    CTAs in ``tied_lm.last_grid``, the joint loop's iterations in the
+    device tensor ``tied_lm.last_iterations``, for measurement); CPU
+    tensors get ``tied_lm_reference``.  Raises ``ValueError`` on any other
+    device and on arguments the kernel does not take,
+    ``NotImplementedError`` on CUDA for a custom model, and
+    ``RuntimeError`` when the kernel does not build or launch."""
+    return _launch(vect0, const_params, pixels, mask, origin, norm, valid,
+                   fvalid, None, None, model=model, layout=layout,
+                   window_shape=window_shape, global_slots=global_slots,
+                   lo=lo, hi=hi, max_iter=max_iter, ftol=ftol, xtol=xtol,
+                   lam0=lam0, lam_up=lam_up, lam_down=lam_down,
+                   lam_max=lam_max, constraint=constraint)
+
+
+def tied_lm_clocks(vect0, const_params, pixels, mask, origin, norm, valid,
+                   fvalid=None, ceiling=None, **kw):
+    """``tied_lm`` on CUDA tensors that also returns each CTA's SM clock
+    cycles ``[ctas, 10]`` int64, as its thread 0 sees them, summed over the
+    joint iterations: in all, phase A's damped solves, the tie partials,
+    the wait at the first barrier, the cross-CTA adds of the means, phase
+    B's sweeps, the sweep partials, the wait at the second barrier, phase
+    C's cross-CTA adds and decision, and the iterations counted.
+    ``ceiling`` runs another slot ceiling's sweep (``launch_plan``; 0: the
+    tile).  For measurement: ``chip_smoke.py --tied-kernels``."""
+    clocks = torch.zeros((1024, _CLOCKS), dtype=torch.int64,
+                         device=pixels.device)
+    res = _launch(vect0, const_params, pixels, mask, origin, norm, valid,
+                  fvalid, clocks, ceiling, **kw)
+    return res, clocks[:tied_lm.last_grid]
+
+
+def _launch(vect0, const_params, pixels, mask, origin, norm, valid, fvalid,
+            clocks, ceiling, *, model, layout, window_shape, global_slots, lo, hi,
+            max_iter=60, ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3, lam_up=4.0,
+            lam_down=0.25, lam_max=1e10, constraint=None):
     kw = dict(model=model, layout=layout, window_shape=window_shape,
               global_slots=global_slots, lo=lo, hi=hi, max_iter=max_iter,
               ftol=ftol, xtol=xtol, lam0=lam0, lam_up=lam_up,
@@ -258,25 +368,33 @@ def tied_lm(vect0, const_params, pixels, mask, origin, norm, valid,
     V, G = kp.x0.shape[1], len(tied)
     K = (V + 1) * (V + 2) // 2
     NS = 1 + G + G * (G + 1) // 2
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    plan = launch_plan(
+        B, V, window_shape, D, kp.profile, kp.pose, G,
+        sms=torch.cuda.get_device_properties(index).multi_processor_count,
+        ceiling=ceiling)
+    ctas = plan["ctas"]
     # every host→device copy before the launch (KernelProblem's note)
     tied_t = torch.as_tensor(tied, device=device)
     lo_t = torch.as_tensor(lo_k, device=device)
     hi_t = torch.as_tensor(hi_k, device=device)
     lib = _library()
     valid_i = valid.to(i32)
-    # scratch: the pixel lists and per-lane counters; x and items, current
-    # and trial, and the lanes' maxima; the blocks' FP64 partials (a grid
-    # is at most one block a lane)
-    ws_i = torch.empty((B * npix + 3 * B + 1,), dtype=i32, device=device)
-    ws_f = torch.empty((2 * B * V + 2 * B * K + 4 * B,), dtype=f32,
+    # scratch: the pixel lists (offset, value pairs) and the iterations;
+    # the lanes' state where shared memory does not hold it; the CTAs'
+    # FP64 partials and maxima
+    ws_i = torch.empty((2 * B * npix + 1,), dtype=i32, device=device)
+    ls = 0 if plan["state_in_shared"] else (
+        ctas * plan["warps"] * plan["lanes_per_warp"] * (2 * V + 2 * K + 4))
+    ws_f = torch.empty((ls + 2 * ctas,), dtype=f32, device=device)
+    ws_d = torch.empty((ctas * (G + NS),), dtype=torch.float64,
                        device=device)
-    ws_d = torch.empty((B * (G + NS),), dtype=torch.float64, device=device)
-    pi, pf, pd = ws_i.data_ptr(), ws_f.data_ptr(), ws_d.data_ptr()
+    pf, pd = ws_f.data_ptr(), ws_d.data_ptr()
     x_out = torch.empty((B, V), dtype=f32, device=device)
     cost = torch.empty((B,), dtype=f32, device=device)
     n_iter = torch.empty((B,), dtype=i32, device=device)
     conv = torch.empty((B,), dtype=i32, device=device)
-    grid = ctypes.c_int(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.tied_lm_launch(
@@ -284,23 +402,25 @@ def tied_lm(vect0, const_params, pixels, mask, origin, norm, valid,
             kp.x0.data_ptr(), const_params.data_ptr(), norm.data_ptr(),
             valid_i.data_ptr(), fvalid.data_ptr(), kp.slot_idx.data_ptr(),
             tied_t.data_ptr(), lo_t.data_ptr(), hi_t.data_ptr(),
-            pi, pi + 4 * B * npix, pi + 4 * (B * npix + B),
-            pi + 4 * (B * npix + 2 * B),
-            pf, pf + 4 * 2 * B * V, pf + 4 * (2 * B * V + 2 * B * K),
-            pd, pd + 8 * B * G, pf + 4 * (2 * B * V + 2 * B * K + 2 * B),
+            ws_i.data_ptr(), pf, pd, pd + 8 * ctas * G, pf + 4 * ls,
             B, n, P, V, G, int(layout.isotropic), D, wz, wy, wx,
             int(max_iter), float(ftol), float(xtol), float(lam0),
             float(lam_up), float(lam_down), float(lam_max),
             float(1e6 * lam0), *kp.args(),
             x_out.data_ptr(), cost.data_ptr(), n_iter.data_ptr(),
-            conv.data_ptr(), pi + 4 * (B * npix + 3 * B),
-            ctypes.byref(grid), stream,
+            conv.data_ptr(), ws_i.data_ptr() + 4 * 2 * B * npix,
+            None if clocks is None else clocks.data_ptr(),
+            plan["slot_ceiling"], ctas, plan["warps"],
+            plan["lanes_per_warp"],
+            int(plan["state_in_shared"]), plan["pool_words"],
+            plan["smem_bytes"], stream,
         )
     if rc != 0:
         raise RuntimeError(f"tied_lm: kernel launch failed, cudaError {rc} "
-                           f"(B={B}, grid {grid.value} blocks)")
+                           f"(B={B}, plan {plan})")
     tied_lm.launches += 1
-    tied_lm.last_grid = grid.value
+    tied_lm.last_grid = ctas
+    tied_lm.last_plan = plan
     tied_lm.last_iterations = ws_i[-1:]
     return LMResult(x=kp.expand(x_out), cost=cost, n_iter=n_iter,
                     converged=conv.to(torch.bool), npix=mask.sum(dim=1))
@@ -308,4 +428,5 @@ def tied_lm(vect0, const_params, pixels, mask, origin, norm, valid,
 
 tied_lm.launches = 0
 tied_lm.last_grid = 0
+tied_lm.last_plan = None
 tied_lm.last_iterations = None

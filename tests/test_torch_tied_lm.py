@@ -37,9 +37,10 @@ from clustertracking_tpu_torch.ops.gather import (
 from clustertracking_tpu_torch.ops.residual import make_model_fns
 from clustertracking_tpu_torch.ops.rigid import (
     make_constrained_fns, rigid_kernel_slots)
+from clustertracking_tpu_torch.ops.pixel_lm import pose_kind, profile_tag
 from clustertracking_tpu_torch.ops.tied_lm import (
-    check_tied_lm_args, max_blocks, pack_tied, tie_supported, tied_lm,
-    tied_lm_reference)
+    CTA_WARPS, SMEM_MAX, check_tied_lm_args, launch_plan, pack_tied,
+    slot_ceiling, tie_supported, tied_lm, tied_lm_clocks, tied_lm_reference)
 from clustertracking_tpu_torch.refine import (
     _slot_bounds, _tied_slots, _uses_global, _window_shape)
 
@@ -306,6 +307,166 @@ def test_pack_tied_follows_the_shard_solvers_gslots(ndim, n, modes):
     np.testing.assert_array_equal(hi_uk, hi_u)
 
 
+# ------------------------------------------------------------------ the plan
+
+# [train]'s and [global]'s first tied launches (chip_smoke.py's
+# _tied_bucket): lanes, kernel slots, tied, window, profile, pose
+TRAIN_LAUNCH = (256, 5, 2, (14, 14), 4, 0)
+GLOBAL_LAUNCH = (1472, 6, 1, (18, 18), 0, 1)
+
+
+def _plan(B, V, G, window, prof, pose, **kw):
+    return launch_plan(B, V, window, len(window), prof, pose, G, **kw)
+
+
+@pytest.mark.parametrize("B", [1, 5, 40, 96, 192])
+def test_plan_for_small_buckets(B):
+    """A bucket of fewer lanes than the card has SMs takes a CTA a lane;
+    up to 132 × 12, one lane a warp; every CTA has a warp for each joint
+    sum (the cost, two g and three H entries, two maxima: 8) and keeps
+    its lane state and pixel lists in shared memory."""
+    for sms in (132, 114):
+        plan = _plan(B, *TRAIN_LAUNCH[1:], sms=sms)
+        ctas = min(B, sms)
+        assert plan["ctas"] == ctas and plan["slot_ceiling"] == 8
+        assert plan["warps"] == min(CTA_WARPS[8], max(-(-B // ctas), 8))
+        assert plan["lanes_per_warp"] == 1
+        assert plan["state_in_shared"] and plan["pool_words"] > 0
+
+
+@pytest.mark.parametrize("launch", [TRAIN_LAUNCH, GLOBAL_LAUNCH])
+def test_plan_spreads_the_workflows_buckets_over_the_card(launch):
+    """[train]'s and [global]'s first tied launches (256 and 1,472 lanes)
+    take one CTA on each of the card's 132 SMs, so that an SM runs two or
+    twelve lanes at once (a thread-block cluster's 16 SMs, measured too,
+    ran them 1.5× and 5× slower; PERF.md); a CTA has a warp for each of
+    its lanes or of its joint sums (G = 2: 8, G = 1: 5)."""
+    B = launch[0]
+    plan = _plan(*launch)
+    assert plan["ctas"] == 132 and plan["lanes_per_warp"] == 1
+    G = launch[2]
+    assert plan["warps"] == min(CTA_WARPS[8], max(-(-B // 132),
+                                                  3 + G + G * (G + 1) // 2))
+    assert plan["state_in_shared"] and plan["pool_words"] > 0
+
+
+@pytest.mark.parametrize("B,ceiling,lanes", [
+    (1584, 8, 1), (1585, 0, 1), (2112, 0, 1), (2200, 8, 2), (3168, 8, 2),
+    (4096, 0, 2)])
+def test_plan_strides_warps_over_lanes(B, ceiling, lanes):
+    """Past one lane a warp (132 CTAs of 12 warps at slot ceiling 8),
+    warps stride over lanes; the sweep stays the register one unless the
+    tile's CTAs of 16 warps give a warp fewer lanes."""
+    plan = _plan(B, *TRAIN_LAUNCH[1:])
+    assert plan["ctas"] == 132 and plan["slot_ceiling"] == ceiling
+    assert plan["warps"] == min(CTA_WARPS[ceiling], -(-B // 132))
+    assert plan["lanes_per_warp"] == lanes == -(-B // (132 * plan["warps"]))
+    reg = _plan(B, *TRAIN_LAUNCH[1:], ceiling=8)
+    tile = _plan(B, *TRAIN_LAUNCH[1:], ceiling=0)
+    assert tile["slot_ceiling"] == 0
+    assert tile["warps"] == min(CTA_WARPS[0], -(-B // 132))
+    assert min(reg["lanes_per_warp"], tile["lanes_per_warp"]) == lanes
+
+
+@pytest.mark.parametrize("V,ceiling", [(5, 0), (5, 10), (9, 14), (9, 8),
+                                       (15, 14), (5, 12)])
+def test_plan_takes_a_ceiling_that_holds_the_slots(V, ceiling):
+    """A slot ceiling asked for (to measure one sweep against another)
+    is taken when it holds V slots, the tile always; a register ceiling
+    below V, or one lm_core.cuh has no sweep for, raises."""
+    args = (256, V, 2, (14, 14), 4, 0)
+    if ceiling in CTA_WARPS and (ceiling == 0 or ceiling >= V):
+        assert _plan(*args, ceiling=ceiling)["slot_ceiling"] == ceiling
+    else:
+        with pytest.raises(ValueError, match="slot ceiling"):
+            _plan(*args, ceiling=ceiling)
+
+
+@pytest.mark.parametrize("V", [1, 5, 8, 9, 10, 12, 14, 15, 19])
+@pytest.mark.parametrize("ndim,window", [(2, (18, 18)), (2, (40, 40)),
+                                         (3, (11, 13, 13)), (3, (21,) * 3)])
+def test_plan_fits_shared_memory(V, ndim, window):
+    """Every profile, pose and slot ceiling at up to 20,000 lanes and every
+    tied count: a CTA's shared memory within the H100's 232,448 bytes and
+    a multiple of 8 (FP64 and (offset, value) pairs stay aligned); the
+    warps per CTA follow the ceiling and the lanes."""
+    poses = (0, 1) if ndim == 2 else (0, 2, 3)
+    for prof in range(5):
+        for pose in poses:
+            for G in sorted({1, V}):
+                for B in (1, 256, 1472, 4096, 20000):
+                    for ceiling in (None, 0):
+                        plan = launch_plan(B, V, window, ndim, prof, pose,
+                                           G, ceiling=ceiling)
+                        vm = plan["slot_ceiling"]
+                        assert vm in ({slot_ceiling(V), 0} if ceiling is None
+                                      else {0})
+                        assert plan["smem_bytes"] <= SMEM_MAX
+                        assert plan["smem_bytes"] % 8 == 0
+                        assert plan["pool_words"] % 2 == 0
+                        assert plan["warps"] == min(
+                            CTA_WARPS[vm],
+                            max(-(-B // plan["ctas"]),
+                                3 + G + G * (G + 1) // 2))
+                        assert (plan["ctas"] * plan["warps"]
+                                * plan["lanes_per_warp"] >= B)
+
+
+def _fixed_order_sum(values, valid, plan):
+    """csrc/tied_lm.cu's joint sum of one item, emulated in FP64: warp w
+    of CTA c (gw = w·ctas + c) adds its valid lanes gw, gw + NW, ... in
+    order; each CTA folds its warps' partials by a butterfly over 32
+    lanes; every CTA adds the CTAs' partials k = l, l + 32, ... on lane l,
+    then folds by a butterfly."""
+    W, ctas = plan["warps"], plan["ctas"]
+    NW = ctas * W
+    v = np.where(valid, values.astype(np.float64), 0.0)
+    warp = np.zeros(NW)
+    for w in range(NW):
+        s = 0.0
+        for b in range(w, len(v), NW):
+            if valid[b]:
+                s += v[b]
+        warp[w] = s
+
+    def butterfly(lanes):
+        idx = np.arange(32)
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[idx ^ o]
+        assert np.all(lanes == lanes[0])   # every lane ends alike
+        return lanes[0]
+
+    cta = np.array([butterfly(np.concatenate(
+        [warp[c::ctas], np.zeros(32 - W)])) for c in range(ctas)])
+    lanes = np.zeros(32)
+    for k in range(ctas):
+        lanes[k % 32] += cta[k]
+    return np.float32(butterfly(lanes))
+
+
+@pytest.mark.parametrize("launch,ceiling", [
+    (TRAIN_LAUNCH, None), (GLOBAL_LAUNCH, None), (GLOBAL_LAUNCH, 0),
+    ((4096,) + TRAIN_LAUNCH[1:], None)])
+def test_fixed_order_sums_round_as_the_plain_fp64_sum(launch, ceiling):
+    """The kernel's fixed summation order, emulated on the CPU, gives the
+    FP32 joint sums of the plain FP64 sum (math.fsum, rounded once) on a
+    seeded bucket: per-lane costs, g entries of both signs and H entries
+    of a bucket's size, its last lane invalid."""
+    import math
+
+    plan = _plan(*launch, ceiling=ceiling)
+    rng = np.random.default_rng(14)
+    B = launch[0]
+    valid = np.ones(B, bool)
+    valid[-1] = False
+    items = [rng.lognormal(4.0, 1.0, B).astype(np.float32),
+             rng.normal(0.0, 30.0, B).astype(np.float32),
+             rng.lognormal(8.0, 2.0, B).astype(np.float32)]
+    for x in items:
+        want = np.float32(math.fsum(x[valid].astype(np.float64)))
+        assert _fixed_order_sum(x, valid, plan) == want
+
+
 # ------------------------------------------------------------------ checks
 
 def _check_args(name="inv_series_2_n2"):
@@ -530,20 +691,39 @@ def test_kernel_matches_plain_on_the_card(name):
         assert torch.equal(a, b)
 
 
+def _plan_on_the_card(B, kw):
+    """``launch_plan`` of a bucket as the wrapper makes it on this card."""
+    Vk, G, D, prof, pose = _plan_args(kw)
+    return launch_plan(
+        B, Vk, kw["window_shape"], D, prof, pose, G,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _plan_args(kw):
+    """(kernel slots, tied slots, rank, profile tag, pose kind) of a
+    bucket's tied_lm keywords."""
+    lay, con = kw["layout"], kw["constraint"]
+    Vk = lay.n_slots if con is None else len(rigid_kernel_slots(lay,
+                                                                con)[1])
+    return (Vk, int(np.sum(kw["global_slots"])), lay.ndim,
+            profile_tag(kw["model"]), pose_kind(lay, con))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 5, 2200])
 def test_kernel_strides_over_lanes_on_the_card(B):
-    """One lane; a few; more lanes than the card holds warps at once
-    (2,112 on an H100: 528 blocks of 4 warps), so warps stride over
-    several lanes between the grid's barriers.  (At 3,000 lanes this
+    """One lane; a few; more lanes than the grid has warps (1,584 on an
+    H100: 132 CTAs of 12 warps at this bucket's slot ceiling), so warps
+    stride over several lanes between the grid's barriers.  (At 3,000 lanes this
     scene draws clusters whose fit runs away from its data, signals past
     1e5 with JᵀJ diagonals ~1e-12 of the lane's largest, where no two
     roundings agree.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    if B > 5:
-        assert B > 4 * max_blocks(2, 4, 0)
     inputs, kw = _bucket("inv_series_2_n2", B=max(B, 2))
+    if B > 5:
+        plan = _plan_on_the_card(B, kw)
+        assert plan["lanes_per_warp"] > 1
     if B == 1:
         inputs = {k: None if v is None else v[:1] for k, v in inputs.items()}
         inputs["valid"] = np.ones(1, bool)
@@ -552,6 +732,31 @@ def test_kernel_strides_over_lanes_on_the_card(B):
     res_p = tied_lm_reference(*args, **kw)
     torch.cuda.synchronize()
     _card_agree(res_k, res_p, kw, inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["inv_series_2_n2", "dimer_global_ngon"])
+def test_register_and_tile_sweeps_agree_on_the_card(name):
+    """The same bucket through its slot ceiling's register sweep and
+    through the tile (``tied_lm_clocks(ceiling=0)``, 16 warps a CTA): each
+    held to the plain version, and the two to each other within
+    chip_smoke.py's gates (their pixel sums add in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    inputs, kw = _bucket(name, B=300)
+    args = _args(inputs, "cuda")
+    res_p = tied_lm_reference(*args, **kw)
+    out = {}
+    for ceiling in (None, 0):
+        out[ceiling], clocks = tied_lm_clocks(*args, ceiling=ceiling, **kw)
+        torch.cuda.synchronize()
+        vm = tied_lm.last_plan["slot_ceiling"]
+        assert vm == (slot_ceiling(_plan_args(kw)[0]) if ceiling is None
+                      else 0)
+        assert clocks.shape[0] == tied_lm.last_grid
+        assert int(clocks[0, -1]) == int(tied_lm.last_iterations.item()) + 1
+        _card_agree(out[ceiling], res_p, kw, inputs)
+    _card_agree(out[None], out[0], kw, inputs)
 
 
 @pytest.mark.cuda
