@@ -1,0 +1,6 @@
+"""fused_lm_2d_roofline.frame: ``fused_lm_2d_roofline``'s quantity, in the cells whose end-to-end
+metric is frame_ms_p95 (a per-layer metric moves one end-to-end metric)."""
+import core
+
+UNIT = "%"
+read = core.load_module("metrics", "fused_lm_2d_roofline").read
