@@ -1080,7 +1080,7 @@ def _device_ms(prof):
         name = e.name()
         if (e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
                 and name != "Activity Buffer Request"
-                and not name.startswith(("refit_round", "fit_bucket"))):
+                and not name.startswith(("refine.", "solver."))):
             out[name] = out.get(name, 0.0) + e.duration_ns() / 1e6
     return out
 
@@ -3435,17 +3435,17 @@ def phase_trace(frames, device, smi):
     kernels = 0
     for e in events:
         nm = str(e.get("name", ""))
-        if nm.startswith(("fit_bucket_n", "refit_round_")):
-            key = nm.rstrip("0123456789")
-            names[key] = names.get(key, 0) + 1
+        if nm.startswith(("refine.", "solver.")):
+            names[nm] = names.get(nm, 0) + 1
         if e.get("cat") == "kernel":
             kernels += 1
     print(f"[trace] {smi}: trace_to around config 2's track: one file, "
           f"{size / 1e6:.1f} MB, {len(events)} events, {kernels} device "
           f"kernels; stage ranges {names}; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    check(names.get("fit_bucket_n", 0) > 0 and names.get("refit_round_", 0)
-          > 0, "the trace holds no stage ranges")
+    check(all(names.get(k, 0) > 0 for k in (
+        "refine.prepare", "solver.setup", "solver.round", "solver.kernel",
+        "solver.finish", "refine.drain")), "the trace lacks stage ranges")
     check(kernels > 0, "the trace holds no device kernels")
 
 

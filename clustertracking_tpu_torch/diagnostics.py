@@ -1,12 +1,46 @@
 """Observability: profiler ranges + per-batch fit statistics.
 
 Counterpart of ``clustertracking_tpu/diagnostics.py``.  ``stage`` marks a
-pipeline stage as a ``torch.profiler.record_function`` range (visible in a
-``torch.profiler`` trace, nearly free without one); ``trace_to`` records
-such a trace of a block into a directory; ``collect`` gathers one
+stage of the fit as a ``torch.profiler.record_function`` range while a
+profiler runs, and costs one flag check when none does; ``trace_to``
+records such a trace of a block into a directory; ``collect`` gathers one
 ``BatchRecord`` per solver dispatch of ``refine_leastsq`` and, from
 ``track``, the pipeline loss ledger (per-stage feature counts and stage
 wall clocks).
+
+The ranges ``refine_leastsq`` opens (fixed names; sizes, indices and
+routes go in the range's ``args``, never in its name; each range's parent
+is the range that caused it, and the request's own range is the
+caller's):
+
+- ``refine.find``: the ``find_clusters`` call;
+- ``refine.prepare``: the host work from the found table to a bucket's
+  solver call: the write buffers, each chunk's frames read and stacked
+  onto the device, the grouping into buckets, the integrity guard, the
+  initial parameters, padding, the window shape, the solver lookup and
+  the initial pose, and the uploads of the bucket's lane tensors (the
+  scipy spill of clusters past ``max_cluster_size``, a host solve, runs
+  in it too);
+- ``refine.drain``: each bucket's fetch, non-finite trap, ``BatchRecord``
+  and write-back, and the final column assignment;
+- ``solver.setup`` (``args`` n and B): every shard's solve state and the
+  refit loop's state tensors;
+- ``solver.round`` (``args`` the round's index): one refit round, from the
+  check that any lane still needs it to the bookkeeping after its solve
+  (shift, rms, the best-so-far updates);
+- ``solver.kernel`` (``args`` the route taken), inside ``solver.round``:
+  the route's call for the round: window origins, the gather and the
+  solve (``fused_lm_2d``, ``pixel_lm``, ``block_lm``, ``tied_lm``,
+  ``lm_solve`` or ``lm_solve_global_shards``);
+- ``solver.finish``: every shard's outputs (with ``compute_error``'s
+  std), and the bucket's results packed for one copy to the host.
+
+The ``solver.*`` ranges come from the bucket solver itself, so a caller
+of ``entry.entry``'s solver sees them too; on a mesh ``solver.setup``
+holds the split of the lanes over the shards and ``solver.finish`` their
+join.  In a trace that records the device, the device's idle time falls
+under the range open when it began: a sync waits in the range that holds
+it.
 
 Usage::
 
@@ -35,7 +69,12 @@ import os
 import threading
 from typing import List, Optional
 
+import torch
+
 logger = logging.getLogger("clustertracking_tpu_torch")
+
+# true while a torch.profiler (or autograd profiler) records this process
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 __all__ = ["BatchRecord", "StatsCollector", "collect", "stage",
            "trace_to", "debug_nans", "nan_debug_active", "record_batch",
@@ -77,8 +116,16 @@ class BatchRecord:
     mean_lm_iters: float
     max_lm_iters: int
     mean_rms: float
-    wall_s: float            # dispatch + result copy wall-clock
+    # host wall-clock of the dispatch plus the wait for its result copy;
+    # that wait overlaps the next chunk's work, so it is not the solver's
+    wall_s: float
     backend: str             # '<device>-fused' | '-gathered' | '-torch' | 'scipy'
+    # the solve alone: on CUDA the device time between events around the
+    # solver call and its packing, on the host (and for the scipy spill)
+    # the host clock around them
+    solve_s: float = 0.0
+    # {kernel: launches} of the dispatch, from the wrappers' counters
+    launches: dict = dataclasses.field(default_factory=dict)
 
     @property
     def clusters_per_sec(self) -> float:
@@ -108,6 +155,10 @@ class StatsCollector:
             return {"n_clusters": 0}
         n = sum(b.n_clusters for b in self.batches)
         wall = sum(b.wall_s for b in self.batches)
+        launches: dict = {}
+        for b in self.batches:
+            for k, v in b.launches.items():
+                launches[k] = launches.get(k, 0) + v
         return {
             "n_batches": len(self.batches),
             "n_clusters": n,
@@ -121,6 +172,8 @@ class StatsCollector:
             ) / max(n, 1),
             "wall_s": wall,
             "clusters_per_sec": n / wall if wall > 0 else 0.0,
+            "solve_s": sum(b.solve_s for b in self.batches),
+            "launches": launches,
         }
 
     def summary_by_backend(self) -> dict:
@@ -157,6 +210,12 @@ def collect():
         _local.collector = prev
 
 
+def collecting() -> bool:
+    """Internal: True while ``collect`` is active on this thread (the
+    dispatches then time their solves and count their launches)."""
+    return _active_collector() is not None
+
+
 def record_batch(**kwargs) -> None:
     """Internal: called by refine_leastsq after each solver dispatch."""
     c = _active_collector()
@@ -184,13 +243,33 @@ def record_ledger(**counts) -> None:
             c.ledger[k] = c.ledger.get(k, 0) + v
 
 
-@contextlib.contextmanager
-def stage(name: str):
-    """Profiler range around a pipeline stage."""
-    import torch
+class stage:
+    """``with stage(name, args):`` a profiler range around a stage of the
+    fit, opened only while a profiler runs; otherwise the block runs with
+    one flag check and no range.  ``name`` is fixed (see the module's
+    list); ``args``, a dict of the numbers, becomes the range's argument
+    string (``k=v`` pairs) only when the range opens."""
 
-    with torch.profiler.record_function(name):
-        yield
+    __slots__ = ("name", "args", "_range")
+
+    def __init__(self, name: str, args: Optional[dict] = None):
+        self.name = name
+        self.args = args
+        self._range = None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            args = None if self.args is None else " ".join(
+                f"{k}={v}" for k, v in self.args.items())
+            self._range = torch.profiler.record_function(self.name, args)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
 
 
 @contextlib.contextmanager
@@ -203,7 +282,6 @@ def trace_to(log_dir: str):
     the profiler."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
-    import torch
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

@@ -413,52 +413,63 @@ def _shard_solver(
         when no lane of any shard still needs a round.  A tied bucket's
         round is one joint solve over every shard (its sums all-reduced);
         an untied bucket's rounds are each shard's own."""
-        shs = [setup(*a) for a in shard_args]
-        # Refit-on-shift: a lane whose positions moved more than max_shift
-        # is re-gathered around its new positions and solved again.  The
-        # next round starts from the latest iterate, but the REPORTED fit
-        # is each lane's best finite round (re-centering changes the data
-        # a lane is fit against, and a later round can be worse).
-        vect = [sh.vect0 for sh in shs]
-        need = [sh.valid for sh in shs]
-        iters = [torch.zeros((sh.B,), dtype=torch.int32, device=sh.device)
-                 for sh in shs]
-        vect_best = list(vect)
-        rms_best = [torch.full((sh.B,), torch.inf, device=sh.device)
-                    for sh in shs]
-        conv_best = [torch.zeros((sh.B,), dtype=torch.bool, device=sh.device)
-                     for sh in shs]
+        with diagnostics.stage("solver.setup", {
+                "n": n, "B": sum(a[2].shape[0] for a in shard_args)}):
+            shs = [setup(*a) for a in shard_args]
+            # the route of every round; a tie across shards sums across
+            # devices, on lm_solve_global_shards
+            taken = ("torch" if use_global and len(shs) > 1
+                     else shs[0].taken)
+            # Refit-on-shift: a lane whose positions moved more than
+            # max_shift is re-gathered around its new positions and solved
+            # again.  The next round starts from the latest iterate, but
+            # the REPORTED fit is each lane's best finite round
+            # (re-centering changes the data a lane is fit against, and a
+            # later round can be worse).
+            vect = [sh.vect0 for sh in shs]
+            need = [sh.valid for sh in shs]
+            iters = [torch.zeros((sh.B,), dtype=torch.int32,
+                                 device=sh.device) for sh in shs]
+            vect_best = list(vect)
+            rms_best = [torch.full((sh.B,), torch.inf, device=sh.device)
+                        for sh in shs]
+            conv_best = [torch.zeros((sh.B,), dtype=torch.bool,
+                                     device=sh.device) for sh in shs]
         for it in range(max(max_iter, 1)):
-            if it > 0 and not any(bool(nd.any()) for nd in need):
-                break
-            with diagnostics.stage(f"refit_round_{it}"):
-                if use_global:
-                    rounds = tied_round(shs, vect, need)
-                else:
-                    rounds = [solve_round(sh, v, nd)
-                              for sh, v, nd in zip(shs, vect, need)]
-            for s, (sh, (res, pos_at)) in enumerate(zip(shs, rounds)):
-                shift = torch.amax(
-                    torch.abs(sh.positions_of(res.x) - pos_at), dim=(1, 2)
-                )
-                npx_raw = res.npix
-                npx = torch.clamp(npx_raw, min=1.0)
-                # an empty fit mask (every feature outside its window) has
-                # residual ≡ 0 — that is a FAILED fit, not a perfect one
-                rms_new = torch.where(
-                    npx_raw > 0.0, torch.sqrt(res.cost / npx), torch.inf
-                )
-                iters[s] = iters[s] + torch.where(need[s], res.n_iter, 0)
-                improved = need[s] & (rms_new < rms_best[s])
-                vect_best[s] = torch.where(improved[:, None], res.x,
-                                           vect_best[s])
-                rms_best[s] = torch.where(improved, rms_new, rms_best[s])
-                conv_best[s] = torch.where(improved, res.converged,
-                                           conv_best[s])
-                need[s] = need[s] & (shift > max_shift)
-                vect[s] = res.x
-        return [finish(*a) for a in zip(shs, vect_best, rms_best, conv_best,
-                                         iters)]
+            with diagnostics.stage("solver.round", {"round": it}):
+                if it > 0 and not any(bool(nd.any()) for nd in need):
+                    break
+                with diagnostics.stage("solver.kernel", {"route": taken}):
+                    if use_global:
+                        rounds = tied_round(shs, vect, need)
+                    else:
+                        rounds = [solve_round(sh, v, nd)
+                                  for sh, v, nd in zip(shs, vect, need)]
+                for s, (sh, (res, pos_at)) in enumerate(zip(shs, rounds)):
+                    shift = torch.amax(
+                        torch.abs(sh.positions_of(res.x) - pos_at),
+                        dim=(1, 2)
+                    )
+                    npx_raw = res.npix
+                    npx = torch.clamp(npx_raw, min=1.0)
+                    # an empty fit mask (every feature outside its window)
+                    # has residual ≡ 0 — that is a FAILED fit, not a
+                    # perfect one
+                    rms_new = torch.where(
+                        npx_raw > 0.0, torch.sqrt(res.cost / npx), torch.inf
+                    )
+                    iters[s] = iters[s] + torch.where(need[s], res.n_iter, 0)
+                    improved = need[s] & (rms_new < rms_best[s])
+                    vect_best[s] = torch.where(improved[:, None], res.x,
+                                               vect_best[s])
+                    rms_best[s] = torch.where(improved, rms_new, rms_best[s])
+                    conv_best[s] = torch.where(improved, res.converged,
+                                               conv_best[s])
+                    need[s] = need[s] & (shift > max_shift)
+                    vect[s] = res.x
+        with diagnostics.stage("solver.finish"):
+            return [finish(*a) for a in zip(shs, vect_best, rms_best,
+                                             conv_best, iters)]
 
     return solve_shards, layout, use_global, route
 
@@ -503,17 +514,20 @@ def _mesh_bucket_solver(mesh, model, ndim, isotropic, n, param_mode_key,
                                constraint, dev0) + "-sharded"
 
     def call(stack, fidx, params0, pose0, valid, fvalid=None):
-        lanes = [None if a is None else torch.as_tensor(a)
-                 for a in (fidx, params0, pose0, valid, fvalid)]
-        shards = split_lanes(
-            mesh, lanes, shared=(torch.as_tensor(stack, dtype=torch.float32),))
+        with diagnostics.stage("solver.setup", {
+                "n": n, "B": params0.shape[0], "shards": mesh.size}):
+            lanes = [None if a is None else torch.as_tensor(a)
+                     for a in (fidx, params0, pose0, valid, fvalid)]
+            shards = split_lanes(mesh, lanes, shared=(
+                torch.as_tensor(stack, dtype=torch.float32),))
         if use_global:   # one lockstep loop, its ties across every shard
             outs = solve_shards(shards)
         else:            # each shard's own loop
             outs = [solve_shards([a])[0] for a in shards]
-        joined = [join_lanes(parts, dev0) for parts in zip(*outs)]
-        if not compute_error:   # the std placeholder has no lanes
-            joined[4] = outs[0][4].to(dev0)
+        with diagnostics.stage("solver.finish"):
+            joined = [join_lanes(parts, dev0) for parts in zip(*outs)]
+            if not compute_error:   # the std placeholder has no lanes
+                joined[4] = outs[0][4].to(dev0)
         return tuple(joined)
 
     return call, layout, backend_tag
@@ -555,6 +569,46 @@ def _uses_global(layout, constraint) -> bool:
     """A bucket with slots tied across lanes: 'global' parameter modes or a
     globally shared rigid distance (solved by ``lm_solve_global``)."""
     return bool(np.any(layout.global_slots) or _global_distance(constraint))
+
+
+# (kernel, wrapper, counter): the wrappers as imported, apart from the
+# module names the solver calls through, which a caller may wrap
+_COUNTERS = (("fused_lm_2d", fused_lm_2d, "launches"),
+             ("pixel_lm_resident", pixel_lm, "launches_resident"),
+             ("pixel_lm_streamed", pixel_lm, "launches_streamed"),
+             ("block_lm", block_lm, "launches"),
+             ("tied_lm", tied_lm, "launches"),
+             ("window_gather", window_gather, "launches"))
+
+
+def _launch_counts() -> dict:
+    """The kernel wrappers' launch counters, by kernel."""
+    return {k: getattr(fn, attr) for k, fn, attr in _COUNTERS}
+
+
+def _launches_since(before: dict) -> dict:
+    """{kernel: launches} since ``before`` (``_launch_counts()``), those
+    that launched only."""
+    return {k: v - before[k] for k, v in _launch_counts().items()
+            if v != before[k]}
+
+
+def _clock_mark(device):
+    """A mark on a dispatch's timeline: on CUDA an event recorded on the
+    device's current stream (device time), else the host clock."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+    return time.perf_counter()
+
+
+def _clock_seconds(start, stop) -> float:
+    """Seconds between two ``_clock_mark``s; CUDA events only once the
+    device has passed the second (after the dispatch's fetch)."""
+    if isinstance(start, float):
+        return stop - start
+    return start.elapsed_time(stop) / 1e3
 
 
 def _pack_results(params, rms, conv, iters, std, compute_error):
@@ -803,10 +857,11 @@ def refine_leastsq(
 
     f = f.copy()
     if "cluster" not in f.columns:
-        f = find_clusters(
-            f, separation, pos_columns, t_column, backend=backend_find,
-            device=device,
-        )
+        with diagnostics.stage("refine.find"):
+            f = find_clusters(
+                f, separation, pos_columns, t_column, backend=backend_find,
+                device=device,
+            )
     if t_column not in f.columns:
         f[t_column] = 0
 
@@ -883,25 +938,27 @@ def refine_leastsq(
 
     import pandas as pd
 
-    out = f.copy()
-    # Column write buffers: refined values accumulate in flat numpy arrays
-    # and are assigned to the DataFrame once at the end.
-    param_bufs = {}
-    for name in param_names:
-        if name in out.columns:
-            param_bufs[name] = out[name].to_numpy(dtype=np.float64).copy()
-        else:
-            param_bufs[name] = np.full(len(out), np.nan)
-    cost_buf = np.full(len(out), np.nan)
-    conv_buf = np.zeros(len(out), dtype=bool)
-    iter_buf = np.zeros(len(out), dtype=np.int64)
-    row_pos = pd.Series(np.arange(len(out)), index=out.index)
-    std_cols = {}
-    if compute_error:
+    with diagnostics.stage("refine.prepare"):
+        out = f.copy()
+        # Column write buffers: refined values accumulate in flat numpy
+        # arrays and are assigned to the DataFrame once at the end.
+        param_bufs = {}
         for name in param_names:
-            std_cols[name] = np.full(len(f), np.nan)
+            if name in out.columns:
+                param_bufs[name] = out[name].to_numpy(
+                    dtype=np.float64).copy()
+            else:
+                param_bufs[name] = np.full(len(out), np.nan)
+        cost_buf = np.full(len(out), np.nan)
+        conv_buf = np.zeros(len(out), dtype=bool)
+        iter_buf = np.zeros(len(out), dtype=np.int64)
+        row_pos = pd.Series(np.arange(len(out)), index=out.index)
+        std_cols = {}
+        if compute_error:
+            for name in param_names:
+                std_cols[name] = np.full(len(f), np.nan)
+        frame_numbers = sorted(f[t_column].unique())
 
-    frame_numbers = sorted(f[t_column].unique())
     in_flight: list = []
     drain_queue: list = []
     # under a mesh the lanes must split evenly over its shards
@@ -946,6 +1003,9 @@ def refine_leastsq(
             mean_rms=float(rms[valid].mean()) if valid.any() else 0.0,
             wall_s=p["dispatch_s"] + (time.perf_counter() - t_fetch),
             backend=tag,
+            solve_s=(_clock_seconds(*p["solve_marks"])
+                     if "solve_marks" in p else 0.0),
+            launches=p.get("launches", {}),
         )
 
         # vectorized writeback across the whole bucket; pos_mat slots of
@@ -975,170 +1035,192 @@ def refine_leastsq(
                     std_cols[name][okpos] = stdok[:, :, j][real_ok]
         # rejected: keep originals, cost stays NaN
 
+    def _bucket_of(c):
+        """A cluster size's bucket: the ladder step, except that
+        constrained sizes keep exact buckets (a rigid pose needs the true
+        n), a laddered bucket id must not collide with a constrained size
+        (an unconstrained 5-cluster must not inherit a hexamer constraint
+        by padding into bucket 6), and oversize clusters keep the true
+        size for the spill path."""
+        c = int(c)
+        if c in con_map or c > max_cluster_size:
+            return c
+        lad = min(_ladder_size(c), max_cluster_size)
+        return c if lad in con_map else lad
+
+    def _prepare_bucket(n, grp, images, frame_shape, frame_local, stack):
+        """One bucket of a chunk made ready for its solver: ``(solver, its
+        arguments on the device, the dispatch's record)``, or None where
+        its clusters spilled to the host scipy path."""
+        # within a bucket, sorting by cluster id makes every cluster a
+        # contiguous block, so the whole bucket assembles with vectorized
+        # numpy
+        grp = grp.sort_values("cluster", kind="stable")
+        if n > max_cluster_size:
+            row_groups = [
+                g for _, g in grp.groupby("cluster", sort=False)
+            ]
+            _spill_scipy(
+                param_bufs, cost_buf, row_pos, row_groups, images,
+                model, ndim, isotropic, radius, separation,
+                param_names, pos_columns, size_cols, initial_params,
+                t_column, max_iter, max_shift, max_rms_dev,
+                param_mode_key, conv_buf, iter_buf,
+                std_cols if compute_error else None,
+            )
+            return None
+
+        # integrity guard for user-supplied cluster columns: every
+        # cluster id must appear exactly cluster_size times, within
+        # one frame
+        cid = grp["cluster"].to_numpy()
+        boundaries = np.nonzero(np.diff(cid))[0] + 1
+        starts = np.concatenate([[0], boundaries])
+        sizes_arr = np.diff(np.concatenate([starts, [len(grp)]]))
+        csz_first = grp["cluster_size"].to_numpy()[starts]
+        t_arr = grp[t_column].to_numpy()
+        if (
+            (sizes_arr != csz_first).any()
+            or (sizes_arr > n).any()
+            or (t_arr != np.repeat(t_arr[starts], sizes_arr)).any()
+        ):
+            raise ValueError(
+                "inconsistent cluster/cluster_size columns: a cluster "
+                "id appears with the wrong multiplicity or spans "
+                "frames — re-run find_clusters"
+            )
+        B = len(starts)
+        Bpad = max(lane_quant,
+                   int(np.ceil(B / lane_quant)) * lane_quant)
+        flat = initial_params(grp, images)          # [rows, P]
+        params0 = np.zeros((Bpad, n, P), dtype=np.float32)
+        # pad features replicate member 0 (keeps bbox/window geometry
+        # intact) with signal 0; fvalid gates them out of the model,
+        # the Jacobian and the mask entirely
+        params0[:B] = np.repeat(flat[starts], n, axis=0).reshape(
+            B, n, P
+        )
+        params0[:B, :, 1] = 0.0
+        within = np.arange(len(grp)) - np.repeat(starts, sizes_arr)
+        slot_flat = np.repeat(np.arange(B), sizes_arr) * n + within
+        params0[:B].reshape(-1, P)[slot_flat] = flat
+        fval = np.zeros((Bpad, n), dtype=np.float32)
+        fval.reshape(-1)[slot_flat] = 1.0
+        fidx = np.zeros(Bpad, dtype=np.int32)
+        fidx[:B] = [frame_local[int(t)] for t in t_arr[starts]]
+        valid = np.zeros(Bpad, dtype=bool)
+        valid[:B] = True
+        pos_mat = np.full((B, n), -1, dtype=np.int64)
+        pos_mat.reshape(-1)[slot_flat] = row_pos[grp.index].to_numpy()
+        # pad lanes replicate lane 0 (keeps shapes sane numerically)
+        if B < Bpad and B > 0:
+            params0[B:] = params0[0]
+            fval[B:] = fval[0]
+
+        wshape = _window_shape(n, ndim, radius, separation, frame_shape)
+        if n > 1:
+            # Shrink to this batch's ACTUAL cluster bounding box (the
+            # static formula assumes a straight chain), quantized to
+            # multiples of 8 so window shapes stay few.
+            posb = params0[:B, :, 2 : 2 + ndim]
+            ext = (posb.max(axis=1) - posb.min(axis=1)).max(axis=0)
+            margin = 2.0 * max_shift + 3.0
+            dyn = tuple(
+                min(
+                    w,
+                    max(8, int(-(-(e + 2 * r + margin) // 8) * 8)),
+                )
+                for w, e, r in zip(wshape, ext, radius)
+            )
+            wshape = tuple(
+                min(d, s) for d, s in zip(dyn, frame_shape)
+            )
+        con = con_map.get(n)
+        bucket_args = (
+            model, ndim, isotropic, n, param_mode_key, wshape,
+            radius, bounds_key, con, residual_factor,
+            max_iter, max_shift, lm_max_iter, ftol, xtol,
+            compute_error, lm_backend,
+        )
+        if mesh is None:
+            solver, layout = _bucket_solver(*bucket_args)
+            backend_tag = None
+        else:
+            solver, layout, backend_tag = _mesh_bucket_solver(
+                mesh, *bucket_args)
+        if con is not None and con.kind == "rigid":
+            pose0 = positions_to_pose(params0[:, :, 2:2 + ndim], con)
+        else:
+            pose0 = np.zeros((Bpad, 0))
+        args = (
+            stack, torch.as_tensor(fidx, device=device),
+            torch.as_tensor(params0, device=device),
+            torch.as_tensor(pose0, dtype=torch.float32, device=device),
+            torch.as_tensor(valid, device=device),
+            None if con is not None
+            else torch.as_tensor(fval, device=device),
+        )
+        return solver, args, dict(
+            n=n, B=B, Bpad=Bpad, valid=valid, pos_mat=pos_mat,
+            layout=layout, wshape=wshape, con=con, backend_tag=backend_tag,
+            # non-finite trap context (diagnostics.debug_nans)
+            params0=params0, cids=cid[starts], tvals=t_arr[starts],
+        )
+
     for chunk_start in range(0, len(frame_numbers), frames_per_dispatch):
         chunk = frame_numbers[chunk_start : chunk_start + frames_per_dispatch]
-        images = _frames_of(reader, chunk, ndim)
-        frame_shape = tuple(images[int(chunk[0])].shape)
-        stack = _stack_frames(images, chunk, device)
-        frame_local = {int(t): i for i, t in enumerate(chunk)}
-        sub = f[f[t_column].isin(chunk)]
-
-        # group clusters into LADDER buckets; within a bucket, sorting by
-        # cluster id makes every cluster a contiguous block, so the whole
-        # bucket assembles with vectorized numpy.  Oversize clusters keep
-        # the true size for the spill path.
-        # Constrained sizes keep exact buckets (a rigid pose needs the true
-        # n), and a laddered bucket id must not collide with a constrained
-        # size: an unconstrained 5-cluster must not inherit a hexamer
-        # constraint by padding into bucket 6.
-        csz_all = sub["cluster_size"].to_numpy()
-
-        def _bucket_of(c):
-            c = int(c)
-            if c in con_map or c > max_cluster_size:
-                return c
-            lad = min(_ladder_size(c), max_cluster_size)
-            return c if lad in con_map else lad
-
-        bucket_ids = np.array([_bucket_of(c) for c in csz_all])
-        for n, grp in sub.groupby(bucket_ids):
-            n = int(n)
-            grp = grp.sort_values("cluster", kind="stable")
-            if n > max_cluster_size:
-                row_groups = [
-                    g for _, g in grp.groupby("cluster", sort=False)
-                ]
-                _spill_scipy(
-                    param_bufs, cost_buf, row_pos, row_groups, images,
-                    model, ndim, isotropic, radius, separation,
-                    param_names, pos_columns, size_cols, initial_params,
-                    t_column, max_iter, max_shift, max_rms_dev,
-                    param_mode_key, conv_buf, iter_buf,
-                    std_cols if compute_error else None,
-                )
+        with diagnostics.stage("refine.prepare"):
+            images = _frames_of(reader, chunk, ndim)
+            frame_shape = tuple(images[int(chunk[0])].shape)
+            stack = _stack_frames(images, chunk, device)
+            frame_local = {int(t): i for i, t in enumerate(chunk)}
+            sub = f[f[t_column].isin(chunk)]
+            # group clusters into LADDER buckets
+            bucket_ids = np.array(
+                [_bucket_of(c) for c in sub["cluster_size"].to_numpy()])
+            groups = list(sub.groupby(bucket_ids))
+        for n, grp in groups:
+            with diagnostics.stage("refine.prepare"):
+                bucket = _prepare_bucket(int(n), grp, images, frame_shape,
+                                         frame_local, stack)
+            if bucket is None:
                 continue
-
-            # integrity guard for user-supplied cluster columns: every
-            # cluster id must appear exactly cluster_size times, within
-            # one frame
-            cid = grp["cluster"].to_numpy()
-            boundaries = np.nonzero(np.diff(cid))[0] + 1
-            starts = np.concatenate([[0], boundaries])
-            sizes_arr = np.diff(np.concatenate([starts, [len(grp)]]))
-            csz_first = grp["cluster_size"].to_numpy()[starts]
-            t_arr = grp[t_column].to_numpy()
-            if (
-                (sizes_arr != csz_first).any()
-                or (sizes_arr > n).any()
-                or (t_arr != np.repeat(t_arr[starts], sizes_arr)).any()
-            ):
-                raise ValueError(
-                    "inconsistent cluster/cluster_size columns: a cluster "
-                    "id appears with the wrong multiplicity or spans "
-                    "frames — re-run find_clusters"
-                )
-            B = len(starts)
-            Bpad = max(lane_quant,
-                       int(np.ceil(B / lane_quant)) * lane_quant)
-            flat = initial_params(grp, images)          # [rows, P]
-            params0 = np.zeros((Bpad, n, P), dtype=np.float32)
-            # pad features replicate member 0 (keeps bbox/window geometry
-            # intact) with signal 0; fvalid gates them out of the model,
-            # the Jacobian and the mask entirely
-            params0[:B] = np.repeat(flat[starts], n, axis=0).reshape(
-                B, n, P
-            )
-            params0[:B, :, 1] = 0.0
-            within = np.arange(len(grp)) - np.repeat(starts, sizes_arr)
-            slot_flat = np.repeat(np.arange(B), sizes_arr) * n + within
-            params0[:B].reshape(-1, P)[slot_flat] = flat
-            fval = np.zeros((Bpad, n), dtype=np.float32)
-            fval.reshape(-1)[slot_flat] = 1.0
-            fidx = np.zeros(Bpad, dtype=np.int32)
-            fidx[:B] = [frame_local[int(t)] for t in t_arr[starts]]
-            valid = np.zeros(Bpad, dtype=bool)
-            valid[:B] = True
-            pos_mat = np.full((B, n), -1, dtype=np.int64)
-            pos_mat.reshape(-1)[slot_flat] = row_pos[grp.index].to_numpy()
-            # pad lanes replicate lane 0 (keeps shapes sane numerically)
-            if B < Bpad and B > 0:
-                params0[B:] = params0[0]
-                fval[B:] = fval[0]
-
-            wshape = _window_shape(n, ndim, radius, separation, frame_shape)
-            if n > 1:
-                # Shrink to this batch's ACTUAL cluster bounding box (the
-                # static formula assumes a straight chain), quantized to
-                # multiples of 8 so window shapes stay few.
-                posb = params0[:B, :, 2 : 2 + ndim]
-                ext = (posb.max(axis=1) - posb.min(axis=1)).max(axis=0)
-                margin = 2.0 * max_shift + 3.0
-                dyn = tuple(
-                    min(
-                        w,
-                        max(8, int(-(-(e + 2 * r + margin) // 8) * 8)),
-                    )
-                    for w, e, r in zip(wshape, ext, radius)
-                )
-                wshape = tuple(
-                    min(d, s) for d, s in zip(dyn, frame_shape)
-                )
-            con = con_map.get(n)
-            bucket_args = (
-                model, ndim, isotropic, n, param_mode_key, wshape,
-                radius, bounds_key, con, residual_factor,
-                max_iter, max_shift, lm_max_iter, ftol, xtol,
-                compute_error, lm_backend,
-            )
-            if mesh is None:
-                solver, layout = _bucket_solver(*bucket_args)
-                backend_tag = None
-            else:
-                solver, layout, backend_tag = _mesh_bucket_solver(
-                    mesh, *bucket_args)
-            if con is not None and con.kind == "rigid":
-                pose0 = positions_to_pose(params0[:, :, 2:2 + ndim], con)
-            else:
-                pose0 = np.zeros((Bpad, 0))
-
+            solver, args, p = bucket
+            collecting = diagnostics.collecting()
+            if collecting:
+                launches0 = _launch_counts()
+                mark0 = _clock_mark(device)
             t_dispatch = time.perf_counter()
-            with diagnostics.stage(f"fit_bucket_n{n}"):
-                handles = _pack_results(*solver(
-                    stack, torch.as_tensor(fidx, device=device),
-                    torch.as_tensor(params0, device=device),
-                    torch.as_tensor(pose0, dtype=torch.float32,
-                                    device=device),
-                    torch.as_tensor(valid, device=device),
-                    None if con is not None
-                    else torch.as_tensor(fval, device=device),
-                ), compute_error)
-            in_flight.append(dict(
-                handles=handles, n=n, B=B, Bpad=Bpad, valid=valid,
-                pos_mat=pos_mat, layout=layout, wshape=wshape, con=con,
-                backend_tag=backend_tag,
-                dispatch_s=time.perf_counter() - t_dispatch,
-                # non-finite trap context (diagnostics.debug_nans)
-                params0=params0, cids=cid[starts], tvals=t_arr[starts],
-            ))
+            outs = solver(*args)
+            with diagnostics.stage("solver.finish"):
+                p["handles"] = _pack_results(*outs, compute_error)
+            p["dispatch_s"] = time.perf_counter() - t_dispatch
+            if collecting:
+                p["solve_marks"] = (mark0, _clock_mark(device))
+                p["launches"] = _launches_since(launches0)
+            in_flight.append(p)
 
         # keep at most one chunk's dispatches in flight (bounds device
         # memory: two chunks' frame stacks + results live at once)
-        for p in drain_queue:
-            _drain_bucket(p)
+        if drain_queue:
+            with diagnostics.stage("refine.drain"):
+                for p in drain_queue:
+                    _drain_bucket(p)
         drain_queue = in_flight
         in_flight = []
 
-    for p in drain_queue:
-        _drain_bucket(p)
+    with diagnostics.stage("refine.drain"):
+        for p in drain_queue:
+            _drain_bucket(p)
 
-    for name in param_names:
-        out[name] = param_bufs[name]
-    out["cost"] = cost_buf
-    out["fit_converged"] = conv_buf
-    out["fit_n_iter"] = iter_buf
-    if compute_error:
-        for name, col in std_cols.items():
-            out[name + "_std"] = col
+        for name in param_names:
+            out[name] = param_bufs[name]
+        out["cost"] = cost_buf
+        out["fit_converged"] = conv_buf
+        out["fit_n_iter"] = iter_buf
+        if compute_error:
+            for name, col in std_cols.items():
+                out[name + "_std"] = col
 
     gcons = [c for c in con_map.values() if _global_distance(c)]
     if gcons:
@@ -1408,6 +1490,7 @@ def _spill_scipy(
         else:
             n_rej += 1
     if row_groups:
+        solve_s = time.perf_counter() - t_dispatch
         diagnostics.record_batch(
             cluster_size=len(row_groups[0]),
             n_clusters=len(row_groups),
@@ -1417,8 +1500,9 @@ def _spill_scipy(
             mean_lm_iters=0.0,
             max_lm_iters=0,
             mean_rms=0.0,
-            wall_s=time.perf_counter() - t_dispatch,
+            wall_s=solve_s,
             backend="scipy",
+            solve_s=solve_s,
         )
 
 

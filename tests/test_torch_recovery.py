@@ -770,8 +770,10 @@ def test_trace_to_writes_a_readable_trace(tmp_path):
     assert len(files) == 1
     trace = json.loads(files[0].read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert {"fit_bucket_n1", "fit_bucket_n2"} <= names
-    assert any(str(n).startswith("refit_round_") for n in names)
+    assert {"refine.find", "refine.prepare", "solver.setup", "solver.round",
+            "solver.kernel", "solver.finish", "refine.drain"} <= names
+    assert not any(str(n)[-1:].isdigit() for n in names
+                   if str(n).startswith(("refine.", "solver.")))
 
 
 def test_track_refuses_only_mesh():

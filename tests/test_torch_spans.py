@@ -1,0 +1,283 @@
+"""The port's profiler ranges (``diagnostics.stage``) and the per-dispatch
+``BatchRecord`` fields beside them, on the CPU: ``refine_leastsq`` opens
+the seven fixed names and no other, nested by cause, with their numbers
+in ``args``; with no profiler running ``stage`` opens no range at all;
+a dispatch records its solve time and its kernel launches."""
+import time
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import clustertracking_tpu_torch as ctt
+from clustertracking_tpu_torch import artificial, diagnostics
+from clustertracking_tpu_torch import refine as refine_mod
+from clustertracking_tpu_torch.parallel.sharding import make_mesh
+
+SPANS = {"refine.find", "refine.prepare", "refine.drain", "solver.setup",
+         "solver.round", "solver.kernel", "solver.finish"}
+
+KW = dict(diameter=9, separation=6.0, device="cpu")
+
+
+def _dimer_frame():
+    """Three dimers and a single on a 96² frame, starts off by ~0.3 px."""
+    img = np.zeros((96, 96))
+    rows = []
+    for center, n in [((25, 25), 2), ((25, 70), 2), ((70, 30), 2),
+                      ((70, 70), 1)]:
+        pos = artificial.draw_cluster(img, center, size=2.5, separation=5.0,
+                                      n=n, signal=150.0, angle=0.5)
+        for p in pos:
+            rows.append({"frame": 0, "y": p[0] + 0.2, "x": p[1] - 0.2,
+                         "signal": 150.0, "size": 2.5})
+    return img, pd.DataFrame(rows)
+
+
+def _ranges(prof):
+    """[(name, start_ns, end_ns)] of the trace's user ranges."""
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.is_user_annotation()]
+
+
+def _traced(**kw):
+    img, f = _dimer_frame()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = ctt.refine_leastsq(f, img, **{**KW, **kw})
+    return out, _ranges(prof)
+
+
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+@pytest.mark.parametrize("lm_backend", ["torch", "kernel"])
+def test_refine_opens_exactly_the_seven_spans(lm_backend):
+    """Under a CPU profiler: the seven names and no other, none with a
+    number; every ``solver.kernel`` inside a ``solver.round``, one
+    ``solver.kernel`` a round that solved."""
+    _, ranges = _traced(lm_backend=lm_backend)
+    names = {r[0] for r in ranges}
+    assert names == SPANS
+    assert not any(ch.isdigit() for nm in names for ch in nm)
+    rounds = [r for r in ranges if r[0] == "solver.round"]
+    kernels = [r for r in ranges if r[0] == "solver.kernel"]
+    assert kernels
+    for k in kernels:
+        assert sum(_inside(k, r) for r in rounds) == 1
+    for r in rounds:
+        assert sum(_inside(k, r) for k in kernels) <= 1
+
+
+def test_spans_nest_by_cause():
+    """The DataFrame API's ranges and the bucket solver's do not overlap
+    one another: each solver range lies outside every ``refine.*`` range
+    (a solver's parent is the caller's range), and ranges of one name
+    never overlap."""
+    _, ranges = _traced()
+    refine_r = [r for r in ranges if r[0].startswith("refine.")]
+    solver_r = [r for r in ranges if r[0] in ("solver.setup",
+                                              "solver.round",
+                                              "solver.finish")]
+    for s in solver_r:
+        for r in refine_r:
+            assert s[2] <= r[1] or r[2] <= s[1], (s, r)
+    for name in SPANS:
+        same = sorted(r[1:] for r in ranges if r[0] == name)
+        for a, b in zip(same, same[1:]):
+            assert a[1] <= b[0]
+
+
+@pytest.mark.parametrize("lm_backend,route",
+                         [("torch", "torch"), ("kernel", "fused")])
+def test_span_args_carry_the_numbers(monkeypatch, lm_backend, route):
+    """With a profiler on, each range opens through
+    ``torch.profiler.record_function`` with its numbers in ``args``:
+    the bucket's n and B, the round's index, the route taken."""
+    opened = []
+    real = torch.profiler.record_function
+
+    def recording(name, args=None):
+        opened.append((name, args))
+        return real(name, args)
+
+    monkeypatch.setattr(diagnostics, "_profiler_enabled", lambda: True)
+    monkeypatch.setattr(torch.profiler, "record_function", recording)
+    img, f = _dimer_frame()
+    ctt.refine_leastsq(f, img, lm_backend=lm_backend, **KW)
+    by = {}
+    for name, args in opened:
+        by.setdefault(name, []).append(args)
+    assert set(by) == SPANS
+    assert sorted(by["solver.setup"]) == ["n=1 B=32", "n=2 B=32"]
+    assert "round=0" in by["solver.round"]
+    assert set(by["solver.kernel"]) == {f"route={route}"}
+    assert set(by["refine.prepare"]) == {None}
+
+
+def test_stage_opens_no_range_without_a_profiler(monkeypatch):
+    """No profiler running: ``stage`` never calls ``record_function``
+    (made to raise here), and the fit runs through."""
+    def refuse(*a, **k):
+        raise AssertionError("record_function called with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert not torch._C._autograd._profiler_enabled()
+    with diagnostics.stage("solver.round", {"round": 0}):
+        pass
+    img, f = _dimer_frame()
+    out = ctt.refine_leastsq(f, img, **KW)
+    assert out["cost"].notna().all()
+
+
+def test_stage_is_a_reusable_context_manager():
+    """``stage`` is a class (no generator): an instance enters and leaves
+    more than once, with and without a profiler, and an exception inside
+    passes through with the range closed."""
+    st = diagnostics.stage("solver.finish")
+    for _ in range(2):
+        with st:
+            pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            with st:
+                pass
+        with pytest.raises(ValueError):
+            with diagnostics.stage("solver.kernel", {"route": "fused"}):
+                raise ValueError("inside")
+    names = [r[0] for r in _ranges(prof)]
+    assert names.count("solver.finish") == 2
+    assert names.count("solver.kernel") == 1
+
+
+@pytest.mark.parametrize("lm_backend", ["torch", "kernel"])
+def test_spans_leave_the_fit_unchanged(lm_backend):
+    """The same fit, bit for bit, with the ranges open and without."""
+    img, f = _dimer_frame()
+    plain = ctt.refine_leastsq(f, img, lm_backend=lm_backend, **KW)
+    traced, _ = _traced(lm_backend=lm_backend)
+    pd.testing.assert_frame_equal(plain, traced)
+
+
+def test_mesh_path_opens_the_same_spans():
+    """Over a mesh of two CPU shards the same seven names, no other."""
+    _, ranges = _traced(mesh=make_mesh(["cpu"] * 2))
+    assert {r[0] for r in ranges} == SPANS
+
+
+def test_tied_path_opens_the_same_spans():
+    """A bucket with its size tied across lanes ('global'), on its tied
+    route's plain version: the same seven names."""
+    _, ranges = _traced(param_mode={"size": "global"},
+                        param_val={"size": 2.5}, lm_backend="kernel")
+    assert {r[0] for r in ranges} == SPANS
+
+
+def test_batch_record_carries_solve_s_and_launches():
+    """Each dispatch's ``BatchRecord``: the solve time on the host clock
+    (on the CPU), positive and within the call, and an empty ``launches``
+    (no kernel launches on the CPU); ``summary()`` totals both,
+    ``summary_by_backend()`` keeps its keys."""
+    img, f = _dimer_frame()
+    with diagnostics.collect() as stats:
+        t0 = time.perf_counter()
+        ctt.refine_leastsq(f, img, **KW)
+        call_s = time.perf_counter() - t0
+    assert len(stats.batches) == 2
+    for b in stats.batches:
+        assert 0 < b.solve_s < call_s
+        assert b.launches == {}
+    s = stats.summary()
+    assert s["solve_s"] == pytest.approx(
+        sum(b.solve_s for b in stats.batches))
+    assert s["launches"] == {}
+    for d in stats.summary_by_backend().values():
+        assert set(d) == {"n_clusters", "wall_s", "clusters_per_sec"}
+
+
+def test_batch_record_counts_the_dispatch_launches(monkeypatch):
+    """``launches`` holds what the wrappers' own counters moved during the
+    dispatch, also where a caller wraps the name the solver calls: a
+    stand-in for ``fused_lm_2d`` that counts on the wrapper's counter as a
+    launch on CUDA does, then runs it (the plain version on the CPU),
+    gives one launch a refit round per bucket; ``summary()`` adds them
+    up."""
+    real = refine_mod.fused_lm_2d
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        real.launches += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(refine_mod, "fused_lm_2d", counted)
+    img, f = _dimer_frame()
+    with diagnostics.collect() as stats:
+        ctt.refine_leastsq(f, img, lm_backend="kernel", **KW)
+    per = [b.launches for b in stats.batches]
+    assert len(per) == 2
+    assert all(set(p) == {"fused_lm_2d"} and p["fused_lm_2d"] >= 1
+               for p in per)
+    assert sum(p["fused_lm_2d"] for p in per) == len(calls)
+    assert stats.summary()["launches"] == {"fused_lm_2d": len(calls)}
+
+
+def test_no_solve_clock_without_a_collector(monkeypatch):
+    """With no collector active a dispatch reads no counters and sets no
+    clock marks."""
+    def refuse(*a, **k):
+        raise AssertionError("read while nothing collects")
+
+    monkeypatch.setattr(refine_mod, "_clock_mark", refuse)
+    monkeypatch.setattr(refine_mod, "_launch_counts", refuse)
+    img, f = _dimer_frame()
+    out = ctt.refine_leastsq(f, img, **KW)
+    assert out["cost"].notna().all()
+
+
+def test_scipy_spill_records_its_solve_time():
+    """Clusters past ``max_cluster_size`` spill to scipy on the host: their
+    record's ``solve_s`` is the host clock around the spill."""
+    img, f = _dimer_frame()
+    with diagnostics.collect() as stats:
+        ctt.refine_leastsq(f, img, max_cluster_size=1, **KW)
+    spill = [b for b in stats.batches if b.backend == "scipy"]
+    assert spill and all(0 < b.solve_s == b.wall_s for b in spill)
+    assert all(b.launches == {} for b in spill)
+
+
+# -------------------------------------------------------------------- card
+
+@pytest.mark.cuda
+def test_batch_record_on_the_card():
+    """On CUDA: ``solve_s`` is the device time between the dispatch's
+    events, positive and within the call; ``launches`` holds the
+    ``fused_lm_2d`` launches the wrapper's counter moved by; and a CUDA
+    profiler trace holds the seven ranges with the card's kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
+
+    img, f = _dimer_frame()
+    kw = {**KW, "device": "cuda"}
+    ctt.refine_leastsq(f, img, **kw)          # build, warm
+    before = fused_lm_2d.launches
+    with diagnostics.collect() as stats:
+        t0 = time.perf_counter()
+        ctt.refine_leastsq(f, img, **kw)
+        call_s = time.perf_counter() - t0
+    assert {b.backend for b in stats.batches} == {"cuda-fused"}
+    for b in stats.batches:
+        assert 0 < b.solve_s < call_s
+        assert set(b.launches) == {"fused_lm_2d"}
+    assert (sum(b.launches["fused_lm_2d"] for b in stats.batches)
+            == fused_lm_2d.launches - before)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ctt.refine_leastsq(f, img, **kw)
+        torch.cuda.synchronize()
+    assert {r[0] for r in _ranges(prof) if "." in r[0]} >= SPANS
