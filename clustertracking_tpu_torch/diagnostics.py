@@ -13,7 +13,8 @@ routes go in the range's ``args``, never in its name; each range's parent
 is the range that caused it, and the request's own range is the
 caller's):
 
-- ``refine.find``: the ``find_clusters`` call;
+- ``refine.find``: cluster finding on the table's arrays
+  (``find.cluster_ids``);
 - ``refine.prepare``: the host work from the found table to a bucket's
   solver call: the write buffers, each chunk's frames read and stacked
   onto the device, the grouping into buckets, the integrity guard, the
@@ -22,7 +23,7 @@ caller's):
   scipy spill of clusters past ``max_cluster_size``, a host solve, runs
   in it too);
 - ``refine.drain``: each bucket's fetch, non-finite trap, ``BatchRecord``
-  and write-back, and the final column assignment;
+  and write-back, and the output table's one construction;
 - ``solver.setup`` (``args`` n and B): every shard's solve state and the
   refit loop's state tensors;
 - ``solver.round`` (``args`` the round's index): one refit round, from the

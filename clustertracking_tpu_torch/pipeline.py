@@ -645,7 +645,8 @@ def _refine_with_recovery(
         # back to these values
         for c in (*pos_columns, "signal"):
             combined[f"_pre_{c}"] = combined[c].to_numpy(dtype=float)
-        pos_np = combined[pos_columns].to_numpy()
+        # a copy: the columns may share one block, whose view is read-only
+        pos_np = combined[pos_columns].to_numpy(copy=True)
         sig_np0 = combined["signal"].to_numpy().copy()
         rec_np = combined["_recovered"].to_numpy()
         oc_np = combined["_old_cost"].to_numpy()
@@ -983,7 +984,7 @@ def _accept_gates(f, acc, recovered_col, old_cost_col, pre_vals, old_ref,
     costs[bad & ~good] = np.nan
     f["cost"] = costs
     if restore.any():
-        vals = f[[*pos_columns, "signal"]].to_numpy()
+        vals = f[[*pos_columns, "signal"]].to_numpy(copy=True)
         vals[restore] = pre_vals[restore]
         f[[*pos_columns, "signal"]] = vals
     # a superfluous candidate converges to ~zero signal

@@ -36,8 +36,11 @@ cluster of the bucket together:
   step on the whole video's distance with a refit at that distance fixed
   (``_joint_global_dist``), and reports it in ``out.attrs``.
 
-Rows without a 'cluster' column are grouped by ``find_clusters``
-(``backend_find``: 'host', 'auto' or 'device', on the same device).
+Rows without a 'cluster' column are grouped by ``find.cluster_ids``, the
+array core of ``find_clusters`` (``backend_find``: 'host', 'auto' or
+'device', on the same device).  The DataFrame is read once, into the
+arrays the fit needs; bucketing, lane assembly and write-back run on
+them, and the output table is built once, at the end.
 ``mesh=`` (a ``parallel.sharding.make_mesh`` mesh) splits every bucket's
 lanes over several devices (``_mesh_bucket_solver``).  pandas is
 imported by the DataFrame entry points only.  ``train_leastsq``
@@ -45,6 +48,7 @@ imported by the DataFrame entry points only.  ``train_leastsq``
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import time
@@ -58,7 +62,7 @@ import torch
 from . import diagnostics
 from .constraints import (
     circumradius_factor, pose_dim, positions_to_pose, wrap_constraint_dicts)
-from .find import find_clusters
+from .find import cluster_ids
 from .models.packing import build_layout
 from .models.registry import ModelSpec, get_model
 from .ops.collectives import Mesh, join_lanes, split_lanes
@@ -837,6 +841,8 @@ def refine_leastsq(
     shards (``_mesh_bucket_solver``).  Dispatch tags end in ``-sharded``.
     Any other ``mesh`` raises ``TypeError``.
     """
+    import pandas as pd
+
     device = _mesh_device(mesh, device, "refine_leastsq")
     if pos_columns is None:
         pos_columns = guess_pos_columns(f)
@@ -855,15 +861,25 @@ def refine_leastsq(
     isotropic = not any(c in f.columns for c in aniso_cols)
     size_cols = default_size_columns(ndim, isotropic)
 
-    f = f.copy()
-    if "cluster" not in f.columns:
+    # the columns the fit reads, as arrays, once; pandas is touched again
+    # only to build the output table
+    def column(name):
+        return f[name].to_numpy(dtype=float)
+
+    n_rows = len(f)
+    pos_all = np.stack([column(c) for c in pos_columns], axis=1)
+    has_t = t_column in f.columns
+    t_all = (f[t_column].to_numpy() if has_t
+             else np.zeros(n_rows, dtype=np.int64))
+    found = "cluster" not in f.columns
+    if found:
         with diagnostics.stage("refine.find"):
-            f = find_clusters(
-                f, separation, pos_columns, t_column, backend=backend_find,
-                device=device,
-            )
-    if t_column not in f.columns:
-        f[t_column] = 0
+            cluster, cluster_size = cluster_ids(
+                pos_all, t_all if has_t else None, separation,
+                backend=backend_find, device=device)
+    else:
+        cluster = f["cluster"].to_numpy()
+        cluster_size = f["cluster_size"].to_numpy()
 
     # --- initial parameter table -----------------------------------------
     n_size = len(size_cols)
@@ -883,22 +899,42 @@ def refine_leastsq(
         validate_tuple(size_default_src, n_size), dtype=float
     )
 
-    def initial_params(rows, images):
-        """Initial parameter table for any block of feature rows (a whole
-        bucket or a single spill cluster)."""
-        k = len(rows)
-        p = np.zeros((k, P))
-        p[:, 0] = param_val.get(
-            "background",
-            rows["background"].to_numpy() if "background" in rows
-            else 0.0,
-        )
-        pos = rows[pos_columns].to_numpy(dtype=float)
-        p[:, 2 : 2 + ndim] = pos
-        if "signal" in rows:
-            p[:, 1] = rows["signal"].to_numpy(dtype=float)
+    # each parameter's start: one value, or a column of the table (None:
+    # the signal, read from the frame)
+    starts_of = [
+        param_val["background"] if "background" in param_val
+        else column("background") if "background" in f.columns else 0.0,
+        column("signal") if "signal" in f.columns else None,
+    ] + [None] * ndim
+    for j, c in enumerate(size_cols):
+        # explicit param_val overrides any locate-estimated column
+        if "size" in param_val:
+            starts_of.append(default_size[j])
+        elif c in param_val:
+            starts_of.append(param_val[c])
+        elif c in f.columns:
+            starts_of.append(column(c))
         else:
-            tarr = rows[t_column].to_numpy()
+            starts_of.append(default_size[j])
+    for name in extra_names:
+        if name in param_val:
+            starts_of.append(param_val[name])
+        elif name in f.columns:
+            starts_of.append(column(name))
+        else:
+            starts_of.append(model.default[name])
+
+    def initial_params(rows, images):
+        """Initial parameter table for any block of feature rows (table
+        positions; a whole bucket or a single spill cluster)."""
+        p = np.zeros((len(rows), P))
+        for j, v in enumerate(starts_of):
+            if v is not None:
+                p[:, j] = v[rows] if isinstance(v, np.ndarray) else v
+        pos = pos_all[rows]
+        p[:, 2 : 2 + ndim] = pos
+        if starts_of[1] is None:
+            tarr = t_all[rows]
             for t in np.unique(tarr):
                 m = tarr == t
                 image = np.asarray(images[int(t)].cpu()
@@ -910,24 +946,6 @@ def refine_leastsq(
                     np.asarray(image.shape) - 1,
                 )
                 p[m, 1] = image[tuple(ipos.T)] - p[m, 0]
-        for j, c in enumerate(size_cols):
-            # explicit param_val overrides any locate-estimated column
-            if "size" in param_val or c in param_val:
-                p[:, 2 + ndim + j] = default_size[j] \
-                    if "size" in param_val else param_val[c]
-            elif c in rows:
-                p[:, 2 + ndim + j] = rows[c].to_numpy(dtype=float)
-            else:
-                p[:, 2 + ndim + j] = default_size[j]
-        for j, name in enumerate(extra_names):
-            if name in param_val:
-                p[:, 2 + ndim + n_size + j] = param_val[name]
-            elif name in rows:
-                p[:, 2 + ndim + n_size + j] = rows[name].to_numpy(
-                    dtype=float
-                )
-            else:
-                p[:, 2 + ndim + n_size + j] = model.default[name]
         return p
 
     param_mode_key = tuple(sorted((param_mode or {}).items()))
@@ -936,28 +954,54 @@ def refine_leastsq(
                (bounds or {}).items())
     )
 
-    import pandas as pd
+    def _bucket_of(c):
+        """A cluster size's bucket: the ladder step, except that
+        constrained sizes keep exact buckets (a rigid pose needs the true
+        n), a laddered bucket id must not collide with a constrained size
+        (an unconstrained 5-cluster must not inherit a hexamer constraint
+        by padding into bucket 6), and oversize clusters keep the true
+        size for the spill path."""
+        c = int(c)
+        if c in con_map or c > max_cluster_size:
+            return c
+        lad = min(_ladder_size(c), max_cluster_size)
+        return c if lad in con_map else lad
 
     with diagnostics.stage("refine.prepare"):
-        out = f.copy()
         # Column write buffers: refined values accumulate in flat numpy
-        # arrays and are assigned to the DataFrame once at the end.
+        # arrays, which become the output table at the end.
         param_bufs = {}
         for name in param_names:
-            if name in out.columns:
-                param_bufs[name] = out[name].to_numpy(
+            if name in f.columns:
+                param_bufs[name] = f[name].to_numpy(
                     dtype=np.float64).copy()
             else:
-                param_bufs[name] = np.full(len(out), np.nan)
-        cost_buf = np.full(len(out), np.nan)
-        conv_buf = np.zeros(len(out), dtype=bool)
-        iter_buf = np.zeros(len(out), dtype=np.int64)
-        row_pos = pd.Series(np.arange(len(out)), index=out.index)
+                param_bufs[name] = np.full(n_rows, np.nan)
+        cost_buf = np.full(n_rows, np.nan)
+        conv_buf = np.zeros(n_rows, dtype=bool)
+        iter_buf = np.zeros(n_rows, dtype=np.int64)
         std_cols = {}
         if compute_error:
             for name in param_names:
-                std_cols[name] = np.full(len(f), np.nan)
-        frame_numbers = sorted(f[t_column].unique())
+                std_cols[name] = np.full(n_rows, np.nan)
+        # chunks of frames_per_dispatch frames in frame order; within a
+        # chunk each row's bucket (computed once per distinct cluster
+        # size), and one stable sort puts every chunk's rows bucket by
+        # bucket and, within a bucket, cluster by cluster
+        frame_numbers, frame_rank = np.unique(t_all, return_inverse=True)
+        frame_rank = frame_rank.reshape(-1)
+        chunk_of = frame_rank // frames_per_dispatch
+        frame_local = (frame_rank % frames_per_dispatch).astype(np.int32)
+        sizes, size_rank = np.unique(cluster_size, return_inverse=True)
+        bucket_of_row = np.array([_bucket_of(c) for c in sizes],
+                                 dtype=np.int64)[size_rank.reshape(-1)]
+        order = np.lexsort((cluster, bucket_of_row, chunk_of))
+        cut = np.flatnonzero((np.diff(chunk_of[order]) != 0)
+                             | (np.diff(bucket_of_row[order]) != 0)) + 1
+        runs_of = [[] for _ in range(-(-len(frame_numbers)
+                                         // frames_per_dispatch))]
+        for rows in (np.split(order, cut) if n_rows else []):
+            runs_of[chunk_of[rows[0]]].append(rows)
 
     in_flight: list = []
     drain_queue: list = []
@@ -1035,37 +1079,21 @@ def refine_leastsq(
                     std_cols[name][okpos] = stdok[:, :, j][real_ok]
         # rejected: keep originals, cost stays NaN
 
-    def _bucket_of(c):
-        """A cluster size's bucket: the ladder step, except that
-        constrained sizes keep exact buckets (a rigid pose needs the true
-        n), a laddered bucket id must not collide with a constrained size
-        (an unconstrained 5-cluster must not inherit a hexamer constraint
-        by padding into bucket 6), and oversize clusters keep the true
-        size for the spill path."""
-        c = int(c)
-        if c in con_map or c > max_cluster_size:
-            return c
-        lad = min(_ladder_size(c), max_cluster_size)
-        return c if lad in con_map else lad
-
-    def _prepare_bucket(n, grp, images, frame_shape, frame_local, stack):
+    def _prepare_bucket(n, rows, images, frame_shape, stack):
         """One bucket of a chunk made ready for its solver: ``(solver, its
         arguments on the device, the dispatch's record)``, or None where
-        its clusters spilled to the host scipy path."""
-        # within a bucket, sorting by cluster id makes every cluster a
-        # contiguous block, so the whole bucket assembles with vectorized
-        # numpy
-        grp = grp.sort_values("cluster", kind="stable")
+        its clusters spilled to the host scipy path.  ``rows``: the
+        bucket's table positions, sorted by cluster id (stably), so every
+        cluster is a contiguous block and the whole bucket assembles with
+        vectorized numpy."""
+        cid = cluster[rows]
+        boundaries = np.nonzero(np.diff(cid))[0] + 1
         if n > max_cluster_size:
-            row_groups = [
-                g for _, g in grp.groupby("cluster", sort=False)
-            ]
             _spill_scipy(
-                param_bufs, cost_buf, row_pos, row_groups, images,
+                param_bufs, cost_buf, np.split(rows, boundaries), images,
                 model, ndim, isotropic, radius, separation,
-                param_names, pos_columns, size_cols, initial_params,
-                t_column, max_iter, max_shift, max_rms_dev,
-                param_mode_key, conv_buf, iter_buf,
+                param_names, initial_params, t_all, max_iter, max_shift,
+                max_rms_dev, param_mode_key, conv_buf, iter_buf,
                 std_cols if compute_error else None,
             )
             return None
@@ -1073,12 +1101,10 @@ def refine_leastsq(
         # integrity guard for user-supplied cluster columns: every
         # cluster id must appear exactly cluster_size times, within
         # one frame
-        cid = grp["cluster"].to_numpy()
-        boundaries = np.nonzero(np.diff(cid))[0] + 1
         starts = np.concatenate([[0], boundaries])
-        sizes_arr = np.diff(np.concatenate([starts, [len(grp)]]))
-        csz_first = grp["cluster_size"].to_numpy()[starts]
-        t_arr = grp[t_column].to_numpy()
+        sizes_arr = np.diff(np.concatenate([starts, [len(rows)]]))
+        csz_first = cluster_size[rows[starts]]
+        t_arr = t_all[rows]
         if (
             (sizes_arr != csz_first).any()
             or (sizes_arr > n).any()
@@ -1092,7 +1118,7 @@ def refine_leastsq(
         B = len(starts)
         Bpad = max(lane_quant,
                    int(np.ceil(B / lane_quant)) * lane_quant)
-        flat = initial_params(grp, images)          # [rows, P]
+        flat = initial_params(rows, images)         # [rows, P]
         params0 = np.zeros((Bpad, n, P), dtype=np.float32)
         # pad features replicate member 0 (keeps bbox/window geometry
         # intact) with signal 0; fvalid gates them out of the model,
@@ -1101,17 +1127,17 @@ def refine_leastsq(
             B, n, P
         )
         params0[:B, :, 1] = 0.0
-        within = np.arange(len(grp)) - np.repeat(starts, sizes_arr)
+        within = np.arange(len(rows)) - np.repeat(starts, sizes_arr)
         slot_flat = np.repeat(np.arange(B), sizes_arr) * n + within
         params0[:B].reshape(-1, P)[slot_flat] = flat
         fval = np.zeros((Bpad, n), dtype=np.float32)
         fval.reshape(-1)[slot_flat] = 1.0
         fidx = np.zeros(Bpad, dtype=np.int32)
-        fidx[:B] = [frame_local[int(t)] for t in t_arr[starts]]
+        fidx[:B] = frame_local[rows[starts]]
         valid = np.zeros(Bpad, dtype=bool)
         valid[:B] = True
         pos_mat = np.full((B, n), -1, dtype=np.int64)
-        pos_mat.reshape(-1)[slot_flat] = row_pos[grp.index].to_numpy()
+        pos_mat.reshape(-1)[slot_flat] = rows
         # pad lanes replicate lane 0 (keeps shapes sane numerically)
         if B < Bpad and B > 0:
             params0[B:] = params0[0]
@@ -1167,22 +1193,17 @@ def refine_leastsq(
             params0=params0, cids=cid[starts], tvals=t_arr[starts],
         )
 
-    for chunk_start in range(0, len(frame_numbers), frames_per_dispatch):
+    for k, chunk_start in enumerate(
+            range(0, len(frame_numbers), frames_per_dispatch)):
         chunk = frame_numbers[chunk_start : chunk_start + frames_per_dispatch]
         with diagnostics.stage("refine.prepare"):
             images = _frames_of(reader, chunk, ndim)
             frame_shape = tuple(images[int(chunk[0])].shape)
             stack = _stack_frames(images, chunk, device)
-            frame_local = {int(t): i for i, t in enumerate(chunk)}
-            sub = f[f[t_column].isin(chunk)]
-            # group clusters into LADDER buckets
-            bucket_ids = np.array(
-                [_bucket_of(c) for c in sub["cluster_size"].to_numpy()])
-            groups = list(sub.groupby(bucket_ids))
-        for n, grp in groups:
+        for rows in runs_of[k]:
             with diagnostics.stage("refine.prepare"):
-                bucket = _prepare_bucket(int(n), grp, images, frame_shape,
-                                         frame_local, stack)
+                bucket = _prepare_bucket(int(bucket_of_row[rows[0]]), rows,
+                                         images, frame_shape, stack)
             if bucket is None:
                 continue
             solver, args, p = bucket
@@ -1213,14 +1234,32 @@ def refine_leastsq(
         for p in drain_queue:
             _drain_bucket(p)
 
-        for name in param_names:
-            out[name] = param_bufs[name]
-        out["cost"] = cost_buf
-        out["fit_converged"] = conv_buf
-        out["fit_n_iter"] = iter_buf
-        if compute_error:
-            for name, col in std_cols.items():
-                out[name + "_std"] = col
+        # the output in one construction: the input's columns, those
+        # this call sets replaced in place and the new ones after them,
+        # in the order column assignments would give
+        columns = {c: f[c].array for c in f.columns}
+        if found:
+            columns["cluster"] = cluster
+            columns["cluster_size"] = cluster_size
+        if not has_t:
+            columns[t_column] = t_all
+        columns.update(param_bufs)
+        columns["cost"] = cost_buf
+        columns["fit_converged"] = conv_buf
+        columns["fit_n_iter"] = iter_buf
+        for name, col in std_cols.items():
+            columns[name + "_std"] = col
+        out = pd.DataFrame(columns, index=f.index)
+        if (out.columns.dtype != f.columns.dtype
+                or f.columns.name is not None):
+            # the labels typed and named as inserting them one by one
+            # into the input's would
+            labels = f.columns
+            for c in columns:
+                if c not in f.columns:
+                    labels = labels.insert(len(labels), c)
+            out.columns = labels
+        out.attrs = copy.deepcopy(f.attrs)
 
     gcons = [c for c in con_map.values() if _global_distance(c)]
     if gcons:
@@ -1441,26 +1480,28 @@ def _host_profile(model):
 
 
 def _spill_scipy(
-    param_bufs, cost_buf, row_pos, row_groups, images, model, ndim,
-    isotropic, radius, separation, param_names, pos_columns, size_cols,
-    initial_params, t_column, max_iter, max_shift, max_rms_dev,
-    param_mode_key, conv_buf=None, iter_buf=None, std_cols=None,
+    param_bufs, cost_buf, row_groups, images, model, ndim, isotropic,
+    radius, separation, param_names, initial_params, t_all, max_iter,
+    max_shift, max_rms_dev, param_mode_key, conv_buf=None, iter_buf=None,
+    std_cols=None,
 ):
-    """Host scipy path for clusters larger than the biggest bucket; sets
-    ``fit_converged``/``fit_n_iter`` from scipy's ier/nfev and fills the
-    ``_std`` columns from the leastsq covariance when requested."""
+    """Host scipy path for clusters larger than the biggest bucket (each
+    of ``row_groups`` one cluster's table positions, ``t_all`` the frame
+    of every row); sets ``fit_converged``/``fit_n_iter`` from scipy's
+    ier/nfev and fills the ``_std`` columns from the leastsq covariance
+    when requested."""
     from .hostref import fit_cluster_scipy
 
     t_dispatch = time.perf_counter()
     n_rej = 0
     profile = _host_profile(model)
-    for rows in row_groups:
-        n = len(rows)
-        t = int(rows[t_column].iloc[0])
+    for pos in row_groups:
+        n = len(pos)
+        t = int(t_all[pos[0]])
         image = images[t]
         image = np.asarray(image.cpu() if isinstance(image, torch.Tensor)
                            else image)
-        p0 = initial_params(rows, images)
+        p0 = initial_params(pos, images)
         layout = build_layout(
             model, ndim, isotropic, n, dict(param_mode_key)
         )
@@ -1475,7 +1516,6 @@ def _spill_scipy(
             # otherwise re-enter leastsq max_iter times
             nfev_budget=min(50 * (layout.n_slots + 1), 20000),
         )
-        pos = row_pos[rows.index].to_numpy()
         if conv_buf is not None:
             conv_buf[pos] = info["converged"]
         if iter_buf is not None:

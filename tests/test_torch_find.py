@@ -8,6 +8,9 @@ has to agree, exactly:
 - ``find_clusters`` with 'host' and with 'device' (the port's float64
   label propagation on the CPU) against the reference's same backend:
   the whole output DataFrame;
+- the array core ``cluster_ids`` (what ``refine_leastsq`` calls) against
+  the wrapper and the reference's columns, and its array union-find and
+  ``_canonicalize`` against the reference's loops;
 - the raw labels of ``connected_components`` against the reference's
   (root indices, the smallest index of each component: equal wherever
   both agree with the host), and the canonical labels against the host's
@@ -87,6 +90,80 @@ def test_find_clusters_matches_reference(scene, backend):
     ref = ct.find_clusters(f, separation=sep, backend=backend)
     out = ctt.find_clusters(f, separation=sep, backend=backend, device="cpu")
     pd.testing.assert_frame_equal(out, ref)
+
+
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_array_core_matches_wrapper_and_reference(scene):
+    """``cluster_ids`` on the scene's arrays, what ``find_clusters`` wraps
+    and ``refine_leastsq`` calls directly, gives the reference's
+    ``cluster`` and ``cluster_size`` (its groupby over frames, its
+    first-appearance ids) with either backend, and so does the wrapper;
+    with no frame column, one frame."""
+    import clustertracking_tpu as ct
+    from clustertracking_tpu.utils import validate_tuple
+
+    f, sep = SCENES[scene]
+    cols = [c for c in ("z", "y", "x") if c in f.columns]
+    coords = f[cols].to_numpy(dtype=float)
+    ref = ct.find_clusters(f, separation=sep)
+    for backend in ("host", "device"):
+        cluster, sizes = find.cluster_ids(
+            coords, f["frame"].to_numpy(), validate_tuple(sep, len(cols)),
+            backend=backend, device="cpu")
+        assert cluster.dtype == sizes.dtype == np.int64
+        np.testing.assert_array_equal(cluster, ref["cluster"].to_numpy())
+        np.testing.assert_array_equal(sizes, ref["cluster_size"].to_numpy())
+    out = ctt.find_clusters(f, separation=sep)
+    np.testing.assert_array_equal(out["cluster"].to_numpy(), cluster)
+    np.testing.assert_array_equal(out["cluster_size"].to_numpy(), sizes)
+    one = ct.find_clusters(f.drop(columns="frame"), separation=sep)
+    cluster, sizes = find.cluster_ids(coords, None,
+                                      validate_tuple(sep, len(cols)))
+    np.testing.assert_array_equal(cluster, one["cluster"].to_numpy())
+    np.testing.assert_array_equal(sizes, one["cluster_size"].to_numpy())
+
+
+def test_frames_group_in_order_of_first_appearance():
+    """Frames that come out of order, interleaved, and with a NaN frame:
+    ids run over the frames in order of first appearance, as the
+    reference's ``groupby(sort=False)`` has them, and rows of a NaN frame
+    stay in no cluster (-1), counted together, as the reference leaves
+    them."""
+    import clustertracking_tpu as ct
+
+    rng = np.random.default_rng(9)
+    f = _df(rng.uniform(0, 20, (60, 2)))
+    f["frame"] = rng.choice([3.0, 1.0, 7.0, np.nan], 60)
+    out = ctt.find_clusters(f, 3.0)
+    pd.testing.assert_frame_equal(out, ct.find_clusters(f, 3.0))
+    assert (out["cluster"][f["frame"].isna()] == -1).all()
+
+
+def test_canonical_ids_and_components_match_the_loops():
+    """The array versions of ``_canonicalize`` (np.unique) and of the
+    host union-find (hooks and pointer jumping) against loop versions:
+    the reference's dict over labels, and its per-pair union-find (root
+    = smallest index), on scenes with long chains, in 3D and with
+    points in reverse order."""
+    from clustertracking_tpu.find import _canonicalize as ref_canonicalize
+    from clustertracking_tpu.ops.find import (
+        host_connected_components as ref_components)
+
+    rng = np.random.default_rng(11)
+    scenes = [(rng.uniform(0, 60, (2000, 2))[::-1], 4.0),
+              (np.stack([np.zeros(400), np.arange(400)[::-1] * 3.0], -1),
+               3.5),
+              (rng.uniform(0, 30, (500, 3)), (2.0, 2.5, 3.0)),
+              (rng.uniform(0, 100, (3000, 2)), 1.5),
+              (np.zeros((0, 2)), 1.0)]
+    for coords, sep in scenes:
+        labels = host_connected_components(coords, sep)
+        np.testing.assert_array_equal(labels, ref_components(coords, sep))
+        np.testing.assert_array_equal(_canonicalize(labels),
+                                      ref_canonicalize(labels))
+    shuffled = rng.permutation(np.repeat(rng.integers(0, 10**6, 300), 3))
+    np.testing.assert_array_equal(_canonicalize(shuffled),
+                                  ref_canonicalize(shuffled))
 
 
 @pytest.mark.parametrize("scene", list(SCENES))
