@@ -19,7 +19,13 @@ driver has ``call(i) -> dict`` (one timed call; its counts), ``close()``
 (after the window: free the program's state), ``check() -> list`` of
 ``Check`` (the comparison) and a ``records`` dict the readers may use;
 for ``control.py`` also ``reference(keys, precision)``,
-``program_fits()``, ``as_fits(ref)`` and ``gaps(fits, ref)``.  A metric
+``program_fits()``, ``as_fits(ref)`` and ``gaps(fits, ref)``.  A cell's
+tests (``tests/``) need two more names of its driver module:
+``HOST_TRAFFIC``, the traffic entries that shrink its cells to a size the
+host can hold, and ``plant(driver, fault)``, which wraps the driver's
+program entry so that each call suffers ``fault`` (``"unchanged"``,
+``"half"`` or ``"altered"``); so a cell with a new driver is new files,
+its tests included.  A metric
 module has ``UNIT`` and ``read(run) -> float | None`` (None: nothing to
 read in this run, and the metric is left out).
 """
@@ -142,11 +148,13 @@ def _intervals_union(iv):
 
 
 def read_trace(prof, top: int = 10) -> dict:
-    """Device time by operation name, busy seconds, and the idle gaps by
-    the host range they fell in, from the profiler's raw events (the
-    device's own events only: a CPU op reports its kernels' time too, and
-    ``record_function`` ranges show on the device as spans that hold
-    kernels; ``key_averages()`` costs ~80 us an event)."""
+    """Device time by operation name (``device_ops``: the ``top`` longest),
+    busy seconds, and the idle gaps by the host range they fell in
+    (``idle_gaps``: every range, longest first, so a reader can sum them
+    by prefix), from the profiler's raw events (the device's own events
+    only: a CPU op reports its kernels' time too, and ``record_function``
+    ranges show on the device as spans that hold kernels;
+    ``key_averages()`` costs ~80 us an event)."""
     from torch.autograd import DeviceType
 
     ops, dev_iv, host_ranges = {}, [], []
@@ -199,7 +207,7 @@ def read_trace(prof, top: int = 10) -> dict:
                 window_s=(win[1] - win[0]) / 1e9,
                 device_ops=[[k, v] for k, v in by_time[:top]],
                 idle_gaps=[[k, v] for k, v in sorted(
-                    idle.items(), key=lambda kv: -kv[1])[:top]])
+                    idle.items(), key=lambda kv: -kv[1])])
 
 
 def execute(workload: str, seed: int, seconds: float, trace: bool,
@@ -264,8 +272,9 @@ def execute(workload: str, seed: int, seconds: float, trace: bool,
     if tracedata is not None:
         dev["busy_s"] = tracedata["busy_s"]
         dev["window_s"] = tracedata["window_s"]
+        # the result line carries at most 10 entries a list
         result["breakdown"] = {"device_ops": tracedata["device_ops"],
-                               "idle_gaps": tracedata["idle_gaps"]}
+                               "idle_gaps": tracedata["idle_gaps"][:10]}
     result["check"] = {c.name: {"value": c.value, "limit": c.limit}
                        for c in checks}
     return result, checks

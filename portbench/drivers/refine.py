@@ -20,10 +20,39 @@ from reference import clusters, compare, frame_fit
 from roofline import lm_ops
 
 KERNEL = "fused_lm_2d_kernel"
+# the traffic entries that shrink this driver's cells to the host
+HOST_TRAFFIC = {"frames": 2}
+ALTER_PX = 0.01   # one answer moved by a hundredth of a pixel
 
 
 def make(cell, config, seed, device):
     return Refine(cell, config, seed, device)
+
+
+def plant(driver, fault):
+    """Wrap the driver's ``refine_leastsq`` so that each call suffers
+    ``fault`` (``"unchanged"``, ``"half"`` or ``"altered"``)."""
+    driver.refine = broken_refine(driver.refine, fault)
+
+
+def broken_refine(refine, fault):
+    def call(table, frame, **kw):
+        if fault == "half":
+            half = table.iloc[: len(table) // 2]
+            out = table.copy()
+            out["cost"] = float("nan")
+            out["fit_converged"] = False
+            out["cluster"] = range(len(out))
+            done = refine(half, frame, **kw)
+            out.loc[done.index, done.columns] = done
+            return out
+        out = refine(table, frame, **kw)
+        if fault == "unchanged":
+            out[["y", "x"]] = table[["y", "x"]].to_numpy()
+        else:
+            out.loc[out.index[0], "x"] += ALTER_PX
+        return out
+    return call
 
 
 class Refine:

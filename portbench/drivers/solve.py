@@ -18,10 +18,35 @@ from reference import compare, gauss_fit
 from roofline import lm_ops
 
 KERNEL = "fused_lm_2d_kernel"
+# the traffic entries that shrink this driver's cells to the host
+HOST_TRAFFIC = {"frames": 1, "pool": 2}
+ALTER_PX = 0.01   # one answer moved by a hundredth of a pixel
 
 
 def make(cell, config, seed, device):
     return Solve(cell, config, seed, device)
+
+
+def plant(driver, fault):
+    """Wrap the driver's solver so that each call suffers ``fault``
+    (``"unchanged"``, ``"half"`` or ``"altered"``)."""
+    driver.solve = broken_solve(driver.solve, fault)
+
+
+def broken_solve(solve, fault):
+    def call(frames, fidx, params0, pose0, valid):
+        if fault == "half":
+            keep = valid.clone()
+            keep[len(keep) // 2:] = False
+            return solve(frames, fidx, params0, pose0, keep)
+        out = list(solve(frames, fidx, params0, pose0, valid))
+        if fault == "unchanged":
+            out[0] = params0.clone()
+        else:
+            out[0] = out[0].clone()
+            out[0][0, 0, 3] += ALTER_PX
+        return tuple(out)
+    return call
 
 
 class Solve:

@@ -7,7 +7,7 @@ import pytest
 
 import control
 import core
-from test_portbench_drivers import SMALL, cells
+from test_portbench_drivers import cells, driver_module
 
 
 def fails(workload, row, prec):
@@ -20,7 +20,8 @@ def fails(workload, row, prec):
 def test_control_fails_on_the_host(workload):
     cell, _ = core.load_cell(workload)
     row = control.readings(workload, 5, 0.3, ("tf32", "bfloat16"),
-                           device="cpu", traffic=SMALL[cell["driver"]])
+                           device="cpu",
+                           traffic=driver_module(cell).HOST_TRAFFIC)
     limits = cell["check"]["limits"]
     assert all(row["program"][n] <= lim for n, lim in limits.items())
     for prec in ("tf32", "bfloat16"):

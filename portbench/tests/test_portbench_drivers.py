@@ -5,8 +5,11 @@ import pytest
 
 import core
 
-# the traffic of each driver shrunk to the host
-SMALL = {"solve": {"frames": 1, "pool": 2}, "refine": {"frames": 2}}
+
+def driver_module(cell):
+    """The module of ``cell``'s driver: its ``make``, and the hooks its
+    tests read (``HOST_TRAFFIC``, ``plant``)."""
+    return core.load_module("drivers", cell["driver"])
 
 
 def cells():
@@ -21,7 +24,8 @@ def cells():
 def test_cell_runs_correct_on_the_host(workload, trace):
     cell, _ = core.load_cell(workload)
     res, checks = core.execute(workload, 2**31 + 11, 0.3, trace,
-                               device="cpu", traffic=SMALL[cell["driver"]])
+                               device="cpu",
+                               traffic=driver_module(cell).HOST_TRAFFIC)
     assert res["correct"], res["check"]
     names = cell["per_layer"] if trace else cell["end_to_end"]
     assert set(res["metrics"]) <= set(names)

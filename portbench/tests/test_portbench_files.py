@@ -86,3 +86,21 @@ def test_every_moves_target_is_reported_by_its_cells():
             cell, _ = core.load_cell(cellname)
             assert m["moves"] in cell["end_to_end"], (m["name"], cellname)
             assert m["name"] in cell["per_layer"]
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in bench()["workloads"]])
+def test_driver_module_carries_its_hooks(workload):
+    """What the harness and the tests read from a cell's driver module, so
+    that a cell with a new driver needs no edit of a test."""
+    cell, _ = core.load_cell(workload)
+    driver = cell["driver"]
+    mod = core.load_module("drivers", driver)
+    for hook in ("make", "plant"):
+        assert callable(getattr(mod, hook, None)), (
+            f"driver {driver!r} has no callable {hook!r}")
+    host = getattr(mod, "HOST_TRAFFIC", None)
+    assert isinstance(host, dict), (
+        f"driver {driver!r} has no dict 'HOST_TRAFFIC'")
+    extra = sorted(set(host) - set(cell["mix"]))
+    assert not extra, (f"driver {driver!r}'s 'HOST_TRAFFIC' has {extra}, "
+                       f"which traffic {cell['traffic']!r} lacks")
