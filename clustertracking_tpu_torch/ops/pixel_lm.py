@@ -63,8 +63,8 @@ from .rigid import make_constrained_fns, rigid_kernel_slots, rigid_supported
 from .window_gather import check_tensor
 
 __all__ = ["KernelProblem", "check_pixel_lm_args", "kernel_mask",
-           "occupancy", "pixel_lm", "pixel_lm_reference", "pick_streaming",
-           "pose_kind", "profile_tag", "smem_words"]
+           "launch_mode", "occupancy", "pixel_lm", "pixel_lm_reference",
+           "pick_streaming", "pose_kind", "profile_tag", "smem_words"]
 
 # Caps of csrc/lm_core.cuh (kMaxSlots, kMaxFeatures, kMaxSeries).
 _CUDA_MAX_SLOTS = 20
@@ -394,6 +394,20 @@ def _default_streaming(window_shape, device, profile, pose, n_slots):
     return _MODE_CHOICE[key]
 
 
+def launch_mode(model, layout, constraint, window_shape, device,
+                streaming=None):
+    """'resident' or 'streamed': the mode ``pixel_lm`` launches for a
+    bucket on the CUDA ``device``, as ``streaming`` forces it or, for
+    None, as occupancy picks it."""
+    if streaming is None:
+        n_slots = (layout.n_slots if constraint is None
+                   else len(rigid_kernel_slots(layout, constraint)[1]))
+        streaming = _default_streaming(
+            window_shape, torch.device(device), profile_tag(model),
+            pose_kind(layout, constraint), n_slots)
+    return "streamed" if streaming else "resident"
+
+
 def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
              fvalid=None, *, model, layout, window_shape, lo, hi, radius,
              max_iter=60, ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3, lam_up=4.0,
@@ -432,10 +446,8 @@ def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
     lib = _library()
     kp = KernelProblem(vect0, layout, model, constraint, lo, hi, device)
     Vk = kp.x0.shape[1]
-    if streaming is None:
-        streaming = _default_streaming(window_shape, device, kp.profile,
-                                       kp.pose, Vk)
-    streaming = bool(streaming)
+    streaming = launch_mode(model, layout, constraint, window_shape, device,
+                            streaming) == "streamed"
     scratch = (torch.empty((B, wz * wy * wx), dtype=i32, device=device)
                if streaming else None)
     valid_i = valid.to(i32)

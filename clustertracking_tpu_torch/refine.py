@@ -72,7 +72,7 @@ from .ops.fused_lm import (
     _KERNEL_MAX_SLOTS, _MAX_WINDOW_PIXELS, fused_lm_2d, kernel_route)
 from .ops.gather import gather_stack, origins_for, radius_mask
 from .ops.lm import GlobalShard, lm_solve, lm_solve_global_shards
-from .ops.pixel_lm import pixel_lm
+from .ops.pixel_lm import launch_mode, pixel_lm
 from .ops.residual import make_model_fns
 from .ops.rigid import make_constrained_fns
 from .ops.tied_lm import tied_lm
@@ -245,6 +245,11 @@ def _shard_solver(
             frame_shape=tuple(frames.shape[1:]))
         device = sh.device
         sh.taken = _route_taken(lm_backend, route, device)
+        # pixel_lm's mode, where the gathered route launches it
+        sh.mode = (launch_mode(model, layout, constraint, window_shape,
+                               device, streaming)
+                   if sh.taken == "gathered" and device.type == "cuda"
+                   else None)
         signal0 = params0[..., layout.signal_param_idx]
         sh.norm = torch.clamp(torch.amax(torch.abs(signal0), dim=1),
                               min=1e-6)
@@ -283,6 +288,15 @@ def _shard_solver(
         sh.fv_extra = () if fvalid is None else (fvalid,)
         return sh
 
+    window_arg = "x".join(map(str, window_shape))
+
+    def gather_windows(sh, origin):
+        """The windows of ``sh``'s lanes at ``origin``, in the
+        ``solver.gather`` range."""
+        with diagnostics.stage("solver.gather",
+                               {"B": sh.B, "window": window_arg}):
+            return gather(sh.frames, sh.frame_idx, origin, window_shape)
+
     def window_of(sh, vect):
         """(positions, window origins) at ``vect``."""
         pos_at = sh.positions_of(vect).contiguous()
@@ -300,11 +314,11 @@ def _shard_solver(
             res = fused_lm_2d(vect, params0, frames, frame_idx, pos_at,
                               origin, sh.norm, need, sh.fvalid, **kw)
         elif sh.taken == "gathered":
-            pixels = gather(frames, frame_idx, origin, window_shape)
+            pixels = gather_windows(sh, origin)
             res = pixel_lm(vect, params0, pixels, pos_at, origin, sh.norm,
                            need, sh.fvalid, streaming=streaming, **kw)
         else:
-            pixels = gather(frames, frame_idx, origin, window_shape)
+            pixels = gather_windows(sh, origin)
             mask = radius_mask(pos_at, origin, window_shape, radius,
                                fvalid=sh.fvalid)
             if sh.taken == "block" or constraint is None:
@@ -335,7 +349,7 @@ def _shard_solver(
         pos_ats, masks, parts = [], [], []
         for sh, vect, need in zip(shs, vects, needs):
             pos_at, origin = window_of(sh, vect)
-            pixels = gather(sh.frames, sh.frame_idx, origin, window_shape)
+            pixels = gather_windows(sh, origin)
             mask = radius_mask(pos_at, origin, window_shape, radius,
                                fvalid=sh.fvalid)
             parts.append(GlobalShard(
@@ -424,6 +438,9 @@ def _shard_solver(
             # devices, on lm_solve_global_shards
             taken = ("torch" if use_global and len(shs) > 1
                      else shs[0].taken)
+            kernel_args = {"route": taken}
+            if shs[0].mode is not None:
+                kernel_args["mode"] = shs[0].mode
             # Refit-on-shift: a lane whose positions moved more than
             # max_shift is re-gathered around its new positions and solved
             # again.  The next round starts from the latest iterate, but
@@ -443,7 +460,7 @@ def _shard_solver(
             with diagnostics.stage("solver.round", {"round": it}):
                 if it > 0 and not any(bool(nd.any()) for nd in need):
                     break
-                with diagnostics.stage("solver.kernel", {"route": taken}):
+                with diagnostics.stage("solver.kernel", kernel_args):
                     if use_global:
                         rounds = tied_round(shs, vect, need)
                     else:

@@ -1,8 +1,11 @@
 """The port's profiler ranges (``diagnostics.stage``) and the per-dispatch
 ``BatchRecord`` fields beside them, on the CPU: ``refine_leastsq`` opens
-the seven fixed names and no other, nested by cause, with their numbers
-in ``args``; with no profiler running ``stage`` opens no range at all;
-a dispatch records its solve time and its kernel launches."""
+the seven fixed names, and ``solver.gather`` inside ``solver.kernel`` on
+every route that gathers windows, and no other, nested by cause, with
+their numbers in ``args``; with no profiler running ``stage`` opens no
+range at all; a dispatch records its solve time and its kernel
+launches."""
+import re
 import time
 
 import numpy as np
@@ -18,6 +21,8 @@ from clustertracking_tpu_torch.parallel.sharding import make_mesh
 
 SPANS = {"refine.find", "refine.prepare", "refine.drain", "solver.setup",
          "solver.round", "solver.kernel", "solver.finish"}
+# opened by every route but the fused one, which gathers no windows
+GATHER = "solver.gather"
 
 KW = dict(diameter=9, separation=6.0, device="cpu")
 
@@ -54,14 +59,42 @@ def _inside(inner, outer):
     return outer[1] <= inner[1] and inner[2] <= outer[2]
 
 
+def _solve_3d(lm_backend, device="cpu"):
+    """Config 4's bucket solver (``entry_3d``) on a 32x48x48 stack of 8
+    dimers."""
+    from clustertracking_tpu_torch.entry import entry_3d, example_batch_3d
+
+    return entry_3d(device, lm_backend=lm_backend,
+                    batch=example_batch_3d(B=8, shape=(32, 48, 48)))
+
+
+def _recording(monkeypatch):
+    """[(name, args)] of every range opened from here on, with the
+    profiler's flag forced on."""
+    opened = []
+    real = torch.profiler.record_function
+
+    def recording(name, args=None):
+        opened.append((name, args))
+        return real(name, args)
+
+    monkeypatch.setattr(diagnostics, "_profiler_enabled", lambda: True)
+    monkeypatch.setattr(torch.profiler, "record_function", recording)
+    return opened
+
+
 @pytest.mark.parametrize("lm_backend", ["torch", "kernel"])
 def test_refine_opens_exactly_the_seven_spans(lm_backend):
-    """Under a CPU profiler: the seven names and no other, none with a
-    number; every ``solver.kernel`` inside a ``solver.round``, one
-    ``solver.kernel`` a round that solved."""
+    """Under a CPU profiler: the seven names, ``solver.gather`` where the
+    route gathers windows ('torch': ``lm_solve`` on gathered windows) and
+    not where it does not ('kernel' on 2D dimers: the fused route), and no
+    other, none with a number; every ``solver.kernel`` inside a
+    ``solver.round``, one ``solver.kernel`` a round that solved, one
+    ``solver.gather`` inside each ``solver.kernel`` that gathers."""
+    gathers = lm_backend == "torch"
     _, ranges = _traced(lm_backend=lm_backend)
     names = {r[0] for r in ranges}
-    assert names == SPANS
+    assert names == (SPANS | {GATHER} if gathers else SPANS)
     assert not any(ch.isdigit() for nm in names for ch in nm)
     rounds = [r for r in ranges if r[0] == "solver.round"]
     kernels = [r for r in ranges if r[0] == "solver.kernel"]
@@ -70,6 +103,11 @@ def test_refine_opens_exactly_the_seven_spans(lm_backend):
         assert sum(_inside(k, r) for r in rounds) == 1
     for r in rounds:
         assert sum(_inside(k, r) for k in kernels) <= 1
+    for g in (r for r in ranges if r[0] == GATHER):
+        assert sum(_inside(g, k) for k in kernels) == 1
+    for k in kernels:
+        assert sum(_inside(g, k) for g in ranges
+                   if g[0] == GATHER) == int(gathers)
 
 
 def test_spans_nest_by_cause():
@@ -85,7 +123,7 @@ def test_spans_nest_by_cause():
     for s in solver_r:
         for r in refine_r:
             assert s[2] <= r[1] or r[2] <= s[1], (s, r)
-    for name in SPANS:
+    for name in SPANS | {GATHER}:
         same = sorted(r[1:] for r in ranges if r[0] == name)
         for a, b in zip(same, same[1:]):
             assert a[1] <= b[0]
@@ -96,26 +134,47 @@ def test_spans_nest_by_cause():
 def test_span_args_carry_the_numbers(monkeypatch, lm_backend, route):
     """With a profiler on, each range opens through
     ``torch.profiler.record_function`` with its numbers in ``args``:
-    the bucket's n and B, the round's index, the route taken."""
-    opened = []
-    real = torch.profiler.record_function
-
-    def recording(name, args=None):
-        opened.append((name, args))
-        return real(name, args)
-
-    monkeypatch.setattr(diagnostics, "_profiler_enabled", lambda: True)
-    monkeypatch.setattr(torch.profiler, "record_function", recording)
+    the bucket's n and B, the round's index, the route taken, and a
+    gather's B and window (the route 'torch' gathers; on the CPU no
+    ``pixel_lm`` mode is named)."""
+    opened = _recording(monkeypatch)
     img, f = _dimer_frame()
     ctt.refine_leastsq(f, img, lm_backend=lm_backend, **KW)
     by = {}
     for name, args in opened:
         by.setdefault(name, []).append(args)
-    assert set(by) == SPANS
+    assert set(by) == (SPANS | {GATHER} if route == "torch" else SPANS)
     assert sorted(by["solver.setup"]) == ["n=1 B=32", "n=2 B=32"]
     assert "round=0" in by["solver.round"]
     assert set(by["solver.kernel"]) == {f"route={route}"}
     assert set(by["refine.prepare"]) == {None}
+    for args in by.get(GATHER, []):
+        assert re.fullmatch(r"B=32 window=\d+x\d+", args), args
+
+
+@pytest.mark.parametrize("lm_backend,route",
+                         [("kernel", "gathered"), ("torch", "torch")])
+def test_gathering_routes_open_the_gather_span(monkeypatch, lm_backend,
+                                               route):
+    """A 3D bucket on the gathered route (its plain version on the CPU)
+    and on the 'torch' route opens one ``solver.gather`` inside each
+    ``solver.kernel``, with the lanes and the window in its ``args``."""
+    solve, args = _solve_3d(lm_backend)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        solve(*args)
+    ranges = _ranges(prof)
+    kernels = [r for r in ranges if r[0] == "solver.kernel"]
+    gathers = [r for r in ranges if r[0] == GATHER]
+    assert kernels and len(gathers) == len(kernels)
+    for k in kernels:
+        assert sum(_inside(g, k) for g in gathers) == 1
+    opened = _recording(monkeypatch)
+    solve(*args)
+    by = {}
+    for name, a in opened:
+        by.setdefault(name, set()).add(a)
+    assert by[GATHER] == {"B=8 window=9x13x13"}
+    assert by["solver.kernel"] == {f"route={route}"}
 
 
 def test_stage_opens_no_range_without_a_profiler(monkeypatch):
@@ -164,17 +223,19 @@ def test_spans_leave_the_fit_unchanged(lm_backend):
 
 
 def test_mesh_path_opens_the_same_spans():
-    """Over a mesh of two CPU shards the same seven names, no other."""
+    """Over a mesh of two CPU shards the same seven names and, the route
+    being 'torch' on the CPU, ``solver.gather``; no other."""
     _, ranges = _traced(mesh=make_mesh(["cpu"] * 2))
-    assert {r[0] for r in ranges} == SPANS
+    assert {r[0] for r in ranges} == SPANS | {GATHER}
 
 
 def test_tied_path_opens_the_same_spans():
     """A bucket with its size tied across lanes ('global'), on its tied
-    route's plain version: the same seven names."""
+    route's plain version: the same seven names and ``solver.gather``
+    (the tied route gathers its windows)."""
     _, ranges = _traced(param_mode={"size": "global"},
                         param_val={"size": 2.5}, lm_backend="kernel")
-    assert {r[0] for r in ranges} == SPANS
+    assert {r[0] for r in ranges} == SPANS | {GATHER}
 
 
 def test_batch_record_carries_solve_s_and_launches():
@@ -281,3 +342,31 @@ def test_batch_record_on_the_card():
         ctt.refine_leastsq(f, img, **kw)
         torch.cuda.synchronize()
     assert {r[0] for r in _ranges(prof) if "." in r[0]} >= SPANS
+
+
+@pytest.mark.cuda
+def test_gathered_route_names_its_mode_on_the_card(monkeypatch):
+    """On CUDA config 4's bucket takes the gathered route: a trace holds
+    ``window_gather_kernel`` and ``pixel_lm_kernel``, ``solver.gather``
+    inside ``solver.kernel``, and ``solver.kernel``'s ``args`` name the
+    mode ``pixel_lm`` launched, which occupancy picks for 9x13x13:
+    resident."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
+
+    solve, args = _solve_3d("auto", "cuda")
+    solve(*args)                               # build, warm
+    resident = pixel_lm.launches_resident
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve(*args)
+        torch.cuda.synchronize()
+    assert pixel_lm.launches_resident > resident
+    kernels = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert any("pixel_lm_kernel" in k for k in kernels)
+    assert any("window_gather_kernel" in k for k in kernels)
+    opened = _recording(monkeypatch)
+    solve(*args)
+    assert ("solver.kernel", "route=gathered mode=resident") in opened
+    assert (GATHER, "B=8 window=9x13x13") in opened
