@@ -3701,8 +3701,9 @@ def phase_mesh(c1, c4, frames, truth, raw, c5_truth, device, smi):
 
     # (b) config 4: refine_leastsq on [refine3d]'s scene (its 7x9x9
     # diameter: occupancy picks pixel_lm streamed), then sharded_fit with
-    # entry_3d's bucket (9x13x13 windows: resident), window_gather then
-    # pixel_lm on every shard
+    # entry_3d's bucket (9x13x13 windows, resident as forced here:
+    # occupancy picks streamed there too, and both modes run sharded),
+    # window_gather then pixel_lm on every shard
     batch4, f4, out4 = c4
     kw4 = dict(diameter=(7, 9, 9), separation=5.0, param_mode={
         "size_z": "var", "size_y": "var", "size_x": "var"})
@@ -3711,7 +3712,7 @@ def phase_mesh(c1, c4, frames, truth, raw, c5_truth, device, smi):
     solve, args = entry_3d(device, batch=batch4)
     one_fit, wall_f1 = _walled(lambda: solve(*args))
     fit, _ = sharded_fit(mesh, "gauss", 3, False, 2, WINDOW_3D, RADIUS_3D,
-                         param_mode=dict(MODES_3D))
+                         param_mode=dict(MODES_3D), streaming=False)
     before = dict(counts)
     with _FirstPixel() as first_pixel:
         with _ShardLaunches() as per_4:

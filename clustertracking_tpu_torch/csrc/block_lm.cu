@@ -88,6 +88,7 @@
 
 namespace {
 
+using lmcore::dmma;
 using lmcore::Feat;
 using lmcore::ProfileExtras;
 
@@ -395,16 +396,6 @@ __device__ void pixel_row(const Problem& p, const Layout& L, float4 px,
           sig * lmcore::profile_dextra<Prof>(e, r2, f + 2 + 2 * D, fe) * w);
   }
   z[0] = ((misc[0] + model) - val) * w;
-}
-
-// D (8×8, two per lane) += A (8×4, one per lane) · B (4×8, one per lane)
-// on the FP64 tensor cores.  Lane l holds A[l/4][l%4], B[l%4][l/4] and
-// D[l/4][2(l%4) + {0, 1}].
-__device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};"
-      : "+d"(c[0]), "+d"(c[1])
-      : "d"(a), "d"(b));
 }
 
 // Upper-triangle tile (I ≤ J) of zᵀz → its index among the ntile.

@@ -53,6 +53,9 @@
 //     the warp sums the accumulators with a transposed shuffle reduction
 //     (31 shuffles per 32 sums, against 5 per sum for a butterfly) that
 //     leaves sums m·l .. m·l+m−1 on lane l;
+//   * pixel_lm's high ceiling (sweep_mma) sums instead on the FP64 tensor
+//     cores, from the rows in the J tile, which frees those accumulators'
+//     registers for more warps an SM;
 //   * the tile instantiation (VM = 0: any V up to kMaxSlots, and the
 //     non-gauss profiles): lane l owns sums l, l+32, ... and adds its
 //     products over the 32 rows of each chunk, reading other lanes' rows;
@@ -75,9 +78,9 @@
 // Numerics: the libraries are built with -fmad=false (ops/_build.py), so
 // every product and sum rounds as the plain PyTorch version's elementwise
 // ops do; the Cholesky pivot is clamped at 1e-20 and divides, as
-// ops/lm.py does.  Sums over pixels run per lane and then across lanes,
-// in one order for every pixel source, so resident and streamed pixel_lm
-// agree bit for bit.
+// ops/lm.py does.  Sums over pixels run per lane and then across lanes
+// (sweep_mma: in FP64, by a fixed order of MMAs), in one order for every
+// pixel source, so resident and streamed pixel_lm agree bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -565,6 +568,16 @@ struct RowLayout {
   static_assert(NPX * Pitch <= kJTileWords, "the J tile is too small");
 };
 
+// D (8×8, two per lane) += A (8×4, one per lane) · B (4×8, one per lane)
+// on the FP64 tensor cores.  Lane l holds A[l/4][l%4], B[l%4][l/4] and
+// D[l/4][2(l%4) + {0, 1}].
+__device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
 // Register accumulators of a ceiling VM: the (VM+1)(VM+2)/2 items, padded
 // to whole groups of 32 for the warp reduction.
 template <int VM>
@@ -615,6 +628,27 @@ __device__ inline void reduce_items(float (&a)[NP], int lane, int n_items,
   }
 }
 
+// One trip of a register sweep (sweep, sweep_mma): the NPX rows z = [J_0 ..
+// J_{V-1}, r] of pixels c0 + lane, c0 + lane + 32, ... into the lane's rows
+// of the J tile, from the caller's c0, count, lane, px, V, jrow, fp, fs,
+// ps, c and s_bg.  A pixel past the list's end reads the last one; its row
+// is built and left for the caller to skip or zero.  A macro, not an inline
+// function: as a function the same statements moved the register
+// allocation of the register sweeps (cuobjdump: fused_lm_2d and
+// pixel_lm), which keep the code they had.
+#define LMCORE_TRIP_ROWS(D, Prof, Pose, NPX, Pitch)                        \
+  float off[NPX][D], val[NPX], wc[NPX];                                     \
+  _Pragma("unroll") for (int t = 0; t < NPX; ++t) {                         \
+    const int k = c0 + 32 * t + lane;                                       \
+    px.load(k < count ? k : count - 1, off[t], val[t], wc[t]);              \
+  }                                                                         \
+  for (int s = 0; s <= V; ++s) {                                            \
+    _Pragma("unroll") for (int t = 0; t < NPX; ++t)                         \
+        jrow[t * Pitch + s] = 0.f;                                          \
+  }                                                                         \
+  pixel_rows<D, Prof, Pose, NPX, Pitch>(off, val, wc, fp, fs, ps, c, s_bg,  \
+                                        jrow);
+
 // One residual + Jacobian sweep at x (shared, length V): writes the items
 // (cost, g, the upper triangle of H) into acc (shared).  VM > 0: register
 // accumulators; VM = 0: the shared tile, lanes owning items (iu, iv).
@@ -651,18 +685,7 @@ __device__ void sweep(const Cluster& c, const float* x, float* sm,
     // take a path ~100 cycles long each.  A pixel past the list's end
     // reads the last one and is not added.
     for (int c0 = 0; c0 < count; c0 += 32 * NPX) {
-      float off[NPX][D], val[NPX], wc[NPX];
-#pragma unroll
-      for (int t = 0; t < NPX; ++t) {
-        const int k = c0 + 32 * t + lane;
-        px.load(k < count ? k : count - 1, off[t], val[t], wc[t]);
-      }
-      for (int s = 0; s <= V; ++s) {
-#pragma unroll
-        for (int t = 0; t < NPX; ++t) jrow[t * RL::Pitch + s] = 0.f;
-      }
-      pixel_rows<D, Prof, Pose, NPX, RL::Pitch>(off, val, wc, fp, fs, ps, c,
-                                                s_bg, jrow);
+      LMCORE_TRIP_ROWS(D, Prof, Pose, NPX, RL::Pitch)
 #pragma unroll
       for (int t = 0; t < NPX; ++t) {
         if (c0 + 32 * t + lane < count) {
@@ -721,6 +744,78 @@ __device__ void sweep(const Cluster& c, const float* x, float* sm,
   }
   __syncwarp();
 }
+
+// The sweep of a register instantiation with its sums on the FP64 tensor
+// cores (pixel_lm.cu at the high ceiling): the rows as sweep builds them
+// (LMCORE_TRIP_ROWS), then zᵀz by mma.sync m8n8k4 f64 with the trip's
+// pixels as k.  The J tile's columns 0 .. 15 are two 8-column blocks
+// (column V holds the residual, columns past V are not read), so a k-step
+// loads and converts one fragment of each block, which serves as both A
+// and B, and runs the three MMAs of the upper-triangle tiles (0,0), (0,1)
+// and (1,1).  An FP64 MMA of FP32 values forms exact products and adds
+// them in FP64; each item is rounded to FP32 once, at the end of the
+// sweep, into acc at v(v+1)/2 + u as sweep writes it.  A lane's fragment
+// element of k-step ks is row 8·(l%4) + ks%8 + 32·(ks/8) of the trip,
+// column 8b + l/4: the four rows of a k-step lie 8 rows apart, which at
+// the odd row stride 15 puts the warp's 32 loads in 32 banks.  Rows past the list's end are
+// zeroed; a trip skips the k-steps of a 32-row half that holds none.
+template <int D, int Prof, int Pose, int VM, class Pixels>
+__device__ void sweep_mma(const Cluster& c, const float* x, float* sm,
+                          const CoreLayout& L, float* acc, int lane,
+                          const Pixels& px) {
+  using RL = RowLayout<VM>;
+  constexpr int NPX = RL::NPX;
+  static_assert(VM + 1 > 8 && VM + 1 <= 16, "two 8-column blocks");
+  static_assert(RL::Stride % 2 == 1, "the fragment loads need an odd stride");
+  const int V = c.V;
+  float* fp = sm + L.fp;
+  const int* fs = reinterpret_cast<const int*>(sm + L.fs);
+  float* ps = sm + L.pose;
+  __syncwarp();
+  stage_features<D, Prof, Pose>(c, x, fp, ps, lane);
+  __syncwarp();
+  const int s_bg = c.slot_idx[0];
+  const int count = px.count();
+  float* jrow = sm + L.jbuf + lane * RL::Stride;
+  const float* zl = sm + L.jbuf + 8 * (lane & 3) * RL::Stride + (lane >> 2);
+  double d[3][2] = {};   // tiles (0,0), (0,1), (1,1)
+  for (int c0 = 0; c0 < count; c0 += 32 * NPX) {
+    LMCORE_TRIP_ROWS(D, Prof, Pose, NPX, RL::Pitch)
+#pragma unroll
+    for (int t = 0; t < NPX; ++t)
+      if (c0 + 32 * t + lane >= count)
+        for (int s = 0; s <= V; ++s) jrow[t * RL::Pitch + s] = 0.f;
+    __syncwarp();
+    const int halves = min(NPX, (count - c0 + 31) / 32);
+    for (int t = 0; t < halves; ++t) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float* z = zl + (32 * t + k) * RL::Stride;
+        const double f0 = z[0], f1 = z[8];
+        dmma(d[0], f0, f0);
+        dmma(d[1], f0, f1);
+        dmma(d[2], f1, f1);
+      }
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cu = 8 * (q == 2) + (lane >> 2);
+      const int cv = 8 * (q > 0) + 2 * (lane & 3) + e;
+      if (cu <= V && cv <= V && (q == 1 || cu <= cv)) {
+        const int zu = cu == V ? 0 : cu + 1, zv = cv == V ? 0 : cv + 1;
+        const int lo = min(zu, zv), hi = max(zu, zv);
+        acc[hi * (hi + 1) / 2 + lo] = __double2float_rn(d[q][e]);
+      }
+    }
+  }
+  __syncwarp();
+}
+
+#undef LMCORE_TRIP_ROWS
 
 // (H + λ·max(diag H, 1e-12) + 1e-10·I) δ = −g by Cholesky across the warp;
 // returns δ_lane (0 on lanes >= V).  Lane i < V owns row i of the factor,
@@ -787,8 +882,10 @@ __device__ inline float damped_solve(const float* acc, float lam, int V,
 // The whole LM solve of one cluster.  On entry xs (shared) holds the
 // clipped start and the feature slots are staged (stage_slots); on exit
 // xs holds the solution.  Every lane returns the same LMOut.  VM: the
-// slot-count ceiling of a register instantiation (V <= VM), or 0.
-template <int D, int Prof, int Pose, int VM, class Pixels>
+// slot-count ceiling of a register instantiation (V <= VM), or 0.  Mma:
+// the sweep's sums on the FP64 tensor cores (sweep_mma), for a register
+// instantiation.
+template <int D, int Prof, int Pose, int VM, bool Mma = false, class Pixels>
 __device__ LMOut lm_run(const Cluster& c, const LMConf& m, float* sm,
                         const CoreLayout& L, int lane, const Pixels& px) {
   const int V = c.V;
@@ -825,8 +922,13 @@ __device__ LMOut lm_run(const Cluster& c, const LMConf& m, float* sm,
       if (lane < V) xt[lane] = clip(xs[lane] + delta, m.lo[lane], m.hi[lane]);
     }
     float* out = acc(first ? cur : 1 - cur);
-    sweep<D, Prof, Pose, VM>(c, first ? xs : xt, sm, L, out, lane, iu, iv,
-                             n_items, px);
+    if constexpr (Mma) {
+      static_assert(VM > 0, "tensor-core sums need a register instantiation");
+      sweep_mma<D, Prof, Pose, VM>(c, first ? xs : xt, sm, L, out, lane, px);
+    } else {
+      sweep<D, Prof, Pose, VM>(c, first ? xs : xt, sm, L, out, lane, iu, iv,
+                               n_items, px);
+    }
     if (first) {
       cost = out[0];
       continue;

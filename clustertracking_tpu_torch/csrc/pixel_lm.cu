@@ -29,24 +29,32 @@
 // of integer division.
 //
 // What bounds it on the H100: a solve costs what its warp executes and
-// waits for (the per-pixel model and Jacobian arithmetic, the cost/g/H
-// products, one damped Cholesky per iteration), not bytes.  At B = 2,048
-// the card holds most clusters at once and iteration counts spread 3x
-// around their mean, so a launch lasts about as long as its slowest
-// cluster's chain of sweeps and solves: what counts is one warp's latency
-// per iteration.  The shared core in lm_core.cuh keeps that chain short:
-// several pixels' chains interleaved per lane, products in register
-// accumulators, no warp barrier in the pixel loop, the Cholesky across
-// the warp.  Resident mode stages the in-mask voxels' values beside their
-// coordinates in shared memory (2·Npix words reserved per warp, the
-// mask's worst case), so nothing is read from device memory inside the LM
-// loop.  Streamed mode keeps only the core's ~2.1k words per warp in
-// shared memory, writes the list to a global scratch row, and reads each
-// listed voxel's value from the pixel array on every sweep — coalesced
-// along x, mostly from L2 — so any window up to the routing cap runs, and
-// an SM holds as many warps as registers allow.  Both modes sum in one
-// order and agree bit for bit; ops/pixel_lm.py picks the mode that holds
-// more warps per SM.
+// waits for, not bytes.  By the SM clock of the design with register sums
+// (config 4, B = 16,384, 8 warps an SM; PERF.md section 6), a sweep and
+// its damped solve take ~68k cycles a warp: the pixel rows 60% (per pixel
+// and feature a dependent chain of divisions, an expf and shared stores),
+// the damped Cholesky 22%, the cost/g/H sums 14% and their warp reduction
+// 2%.  So latency binds, and warps hide it: the shared core in lm_core.cuh
+// interleaves several pixels' chains per lane, keeps no warp barrier in
+// the row build and runs the Cholesky across the warp, and the kernel
+// keeps as many warps on an SM as registers and shared memory allow.  At
+// the high slot ceiling (V = 11..14; config 4's V = 14) the register sums
+// held 128 float accumulators a lane, which capped the kernel at 8 warps
+// an SM.  There the sums run on the FP64 tensor cores instead
+// (lm_core.cuh's sweep_mma: the rows into the shared J tile as before,
+// then zᵀz by mma.sync m8n8k4 f64, each item rounded to FP32 once), so
+// the instantiation fits 20 warps an SM (Sums below): a launch of
+// config 4's 16,384 lanes went from 11.7 ms to 6.0 ms.  Resident mode
+// stages the in-mask voxels' values beside their coordinates in shared
+// memory (2·Npix words reserved per warp, the mask's worst case), so
+// nothing is read from device memory inside the LM loop.  Streamed mode
+// keeps only the core's ~2.1k words per warp in shared memory, writes
+// the list to a global scratch row, and reads each listed voxel's value
+// from the pixel array on every sweep — coalesced along x, mostly from L2
+// — so any window up to the routing cap runs, and an SM holds as many
+// warps as registers allow.  Both modes sum in one order and agree bit
+// for bit; ops/pixel_lm.py picks the mode that holds more warps per SM
+// (config 4: 10 resident, 20 streamed).
 //
 // Weights: every listed voxel weighs 1/norm (the mask·(1/norm) of the plain
 // version).  The mask is (off − rel)·(1/r) with explicit _rn intrinsics, as
@@ -114,12 +122,32 @@ __host__ __device__ inline CoreLayout warp_layout(int npix, bool streamed) {
   return core_layout<D, Prof, Pose>(streamed ? 0 : 2 * npix);
 }
 
+// How an instantiation sums, and the one-warp blocks an SM its registers
+// are held to: at the high ceiling on the FP64 tensor cores (lm_core.cuh's
+// sweep_mma), which needs none of the register path's 128 accumulators,
+// so 20 blocks fit (96 registers a thread: 80–94 used, no spill; 22 and
+// 24 spill, and one, three or four pixels a lane measured slower:
+// PERF.md); the other ceilings and the tile sum in FP32 registers.  So a
+// gauss launch sums on the tensor cores where kRegSlotsMid < V <=
+// kRegSlotsHigh (run_prof), the rule that ops/pixel_lm.py's sum_path
+// mirrors with _REG_SLOTS_MID and _REG_SLOTS_HIGH.
+template <int VM>
+struct Sums {
+  static constexpr bool kMma = VM == kRegSlotsHigh;
+  static constexpr int kBlocks = kMma ? 20 : MinBlocks<VM>::N;
+};
+static_assert(kRegSlotsMid == 10 && kRegSlotsHigh == 14,
+              "ops/pixel_lm.py's _REG_SLOTS_MID, _REG_SLOTS_HIGH");
+static_assert(Sums<kRegSlotsHigh>::kMma && !Sums<kRegSlotsMid>::kMma &&
+                  !Sums<kRegSlotsLow>::kMma && !Sums<0>::kMma,
+              "only the high ceiling sums on the tensor cores");
+
 // One warp, one block, one cluster: a warp that ends frees its place on
 // the SM for the next cluster at once (iteration counts spread 3x around
 // their mean, and a block of several warps would hold its shared memory
 // and registers until its slowest cluster ends).
 template <int D, bool Streamed, int Prof, int Pose, int VM>
-__global__ void __launch_bounds__(32, MinBlocks<VM>::N) pixel_lm_kernel(Problem p) {
+__global__ void __launch_bounds__(32, Sums<VM>::kBlocks) pixel_lm_kernel(Problem p) {
   extern __shared__ float sm[];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
@@ -197,12 +225,12 @@ __global__ void __launch_bounds__(32, MinBlocks<VM>::N) pixel_lm_kernel(Problem 
   const float wc = 1.f / p.norm[b];
   LMOut res;
   if (Streamed) {
-    res = lm_run<D, Prof, Pose, VM>(
+    res = lm_run<D, Prof, Pose, VM, Sums<VM>::kMma>(
         c, p.lm, sm, L, lane,
         StreamedPixels<D>{idx, pix, cnt, p.sy, p.sz, p.my, p.mx, p.wy, p.wx,
                           wc});
   } else {
-    res = lm_run<D, Prof, Pose, VM>(
+    res = lm_run<D, Prof, Pose, VM, Sums<VM>::kMma>(
         c, p.lm, sm, L, lane,
         ResidentPixels<D>{idx, val, cnt, p.sy, p.sz, p.my, p.mx, wc});
   }

@@ -30,11 +30,11 @@ caller's):
   check that any lane still needs it to the bookkeeping after its solve
   (shift, rms, the best-so-far updates);
 - ``solver.kernel`` (``args`` the route taken and, where the gathered
-  route launches ``pixel_lm`` on CUDA, its mode: ``resident`` or
-  ``streamed``), inside ``solver.round``: the route's call for the
-  round: window origins, the gather and the solve (``fused_lm_2d``,
-  ``pixel_lm``, ``block_lm``, ``tied_lm``, ``lm_solve`` or
-  ``lm_solve_global_shards``);
+  route launches ``pixel_lm`` on CUDA, its mode, ``resident`` or
+  ``streamed``, and its sums, ``f64_mma`` or ``fp32_regs``), inside
+  ``solver.round``: the route's call for the round: window origins, the
+  gather and the solve (``fused_lm_2d``, ``pixel_lm``, ``block_lm``,
+  ``tied_lm``, ``lm_solve`` or ``lm_solve_global_shards``);
 - ``solver.gather`` (``args`` B and the window, ``9x13x13``), inside
   ``solver.kernel``: the round's window gather (``window_gather``, or
   ``gather_stack``), on every route but the fused one, which gathers

@@ -10,10 +10,11 @@ windows the fused 2D kernel cannot hold.  Here:
 - ``pixel_lm`` is the wrapper.  On CUDA tensors it launches the
   hand-written kernel ``csrc/pixel_lm.cu`` (built for sm_90a on first use)
   in one of two modes, and counts the launch in
-  ``pixel_lm.launches_resident`` or ``pixel_lm.launches_streamed``; on CPU
-  tensors it returns the plain version's result.  It raises on anything
-  the kernel does not take, and never swaps in the plain version for a
-  CUDA tensor.
+  ``pixel_lm.launches_resident`` or ``pixel_lm.launches_streamed``, and in
+  ``pixel_lm.launches_mma`` where its sums ran on the FP64 tensor cores
+  (``sum_path``); on CPU tensors it returns the plain version's result.
+  It raises on anything the kernel does not take, and never swaps in the
+  plain version for a CUDA tensor.
 - ``pixel_lm_reference`` is the plain PyTorch version: ``kernel_mask`` and
   ``ops/lm.py::lm_solve`` on the model of ``ops/residual.py`` (a rigid
   bucket: on the chain-rule model of ``ops/rigid.py``, full vector).
@@ -30,11 +31,11 @@ and reads values from ``pixels`` on every sweep.  ``streaming=None`` picks
 by occupancy: resident unless its shared memory holds fewer warps per SM
 than streamed, whose warps are bound by registers (CUDA's occupancy
 calculator, per device, window and instantiation).  Both modes give the
-same results bit for bit.  On an H100, config 4's 9×13×13 window (V = 14)
-holds 8 warps per SM either way (its instantiation's registers allow no
-more), so it stays resident; config 3c's 16³ window holds 5 resident
-against 12 streamed, so it streams (3.11 ms against 4.36 ms per launch at
-B=2,048, NVIDIA H100 80GB HBM3, 700 W).
+same results bit for bit.  On an H100, config 4's 9×13×13 window (V = 14,
+sums on the FP64 tensor cores) holds 10 warps per SM resident (its 20.7 KB
+of shared memory a warp) against 20 streamed, so it streams; config 3c's
+16³ window holds 5 resident against 12 streamed, so it streams (3.11 ms
+against 4.36 ms per launch at B=2,048, NVIDIA H100 80GB HBM3, 700 W).
 
 Both versions take the reference ``solve``'s arguments::
 
@@ -64,13 +65,18 @@ from .window_gather import check_tensor
 
 __all__ = ["KernelProblem", "check_pixel_lm_args", "kernel_mask",
            "launch_mode", "occupancy", "pixel_lm", "pixel_lm_reference",
-           "pick_streaming", "pose_kind", "profile_tag", "smem_words"]
+           "pick_streaming", "pose_kind", "profile_tag", "smem_words",
+           "sum_path"]
 
 # Caps of csrc/lm_core.cuh (kMaxSlots, kMaxFeatures, kMaxSeries).
 _CUDA_MAX_SLOTS = 20
 _CUDA_MAX_FEATURES = 32
 _CUDA_MAX_SERIES = 8
 _J_TILE_WORDS = 1152     # kJTileWords: the J tile, NPX pixels per lane
+# kRegSlotsMid, kRegSlotsHigh: a gauss launch with MID < V <= HIGH slots
+# takes the high ceiling's instantiation, whose sums run on the FP64
+# tensor cores (pixel_lm.cu's Sums, which static_asserts these values)
+_REG_SLOTS_MID, _REG_SLOTS_HIGH = 10, 14
 # lm_core.cuh's Profile and PoseKind tags
 _PROFILE_TAGS = {"gauss": 0, "ring": 1, "hat": 2, "disc": 3}
 _INV_SERIES_TAG = 4
@@ -189,6 +195,28 @@ def smem_words(ndim, npix, streamed, profile=0, pose=POSE_NONE):
             + _CUDA_MAX_FEATURES * feat_f + 1 + _CUDA_MAX_FEATURES * feat_i
             + _pose_words(pose))
     return core + (0 if streamed else 2 * int(npix))
+
+
+def _mma_sums(profile, n_slots):
+    """Whether a launch of ``profile`` with ``n_slots`` kernel slots sums
+    on the FP64 tensor cores: the gauss profile's high ceiling."""
+    return profile == 0 and _REG_SLOTS_MID < n_slots <= _REG_SLOTS_HIGH
+
+
+def _kernel_slots(layout, constraint):
+    """The slots the kernel solves: a rigid bucket's compact vector."""
+    return (layout.n_slots if constraint is None
+            else len(rigid_kernel_slots(layout, constraint)[1]))
+
+
+def sum_path(model, layout, constraint=None):
+    """How ``csrc/pixel_lm.cu`` forms a bucket's sums: 'f64_mma' (FP64
+    tensor-core MMAs, each item rounded to float32 once; gauss buckets of
+    11 to 14 kernel slots, 2D and 3D, free or rigid) or 'fp32_regs'
+    (float32 sums per lane, then across the warp)."""
+    return ("f64_mma" if _mma_sums(profile_tag(model),
+                                   _kernel_slots(layout, constraint))
+            else "fp32_regs")
 
 
 def pick_streaming(warps):
@@ -400,11 +428,9 @@ def launch_mode(model, layout, constraint, window_shape, device,
     bucket on the CUDA ``device``, as ``streaming`` forces it or, for
     None, as occupancy picks it."""
     if streaming is None:
-        n_slots = (layout.n_slots if constraint is None
-                   else len(rigid_kernel_slots(layout, constraint)[1]))
         streaming = _default_streaming(
             window_shape, torch.device(device), profile_tag(model),
-            pose_kind(layout, constraint), n_slots)
+            pose_kind(layout, constraint), _kernel_slots(layout, constraint))
     return "streamed" if streaming else "resident"
 
 
@@ -480,9 +506,12 @@ def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
         pixel_lm.launches_streamed += 1
     else:
         pixel_lm.launches_resident += 1
+    if _mma_sums(kp.profile, Vk):
+        pixel_lm.launches_mma += 1
     return LMResult(x=kp.expand(x_out), cost=cost, n_iter=n_iter,
                     converged=conv.to(torch.bool), npix=npix)
 
 
 pixel_lm.launches_resident = 0
 pixel_lm.launches_streamed = 0
+pixel_lm.launches_mma = 0

@@ -72,7 +72,7 @@ from .ops.fused_lm import (
     _KERNEL_MAX_SLOTS, _MAX_WINDOW_PIXELS, fused_lm_2d, kernel_route)
 from .ops.gather import gather_stack, origins_for, radius_mask
 from .ops.lm import GlobalShard, lm_solve, lm_solve_global_shards
-from .ops.pixel_lm import launch_mode, pixel_lm
+from .ops.pixel_lm import launch_mode, pixel_lm, sum_path
 from .ops.residual import make_model_fns
 from .ops.rigid import make_constrained_fns
 from .ops.tied_lm import tied_lm
@@ -245,11 +245,11 @@ def _shard_solver(
             frame_shape=tuple(frames.shape[1:]))
         device = sh.device
         sh.taken = _route_taken(lm_backend, route, device)
-        # pixel_lm's mode, where the gathered route launches it
+        # pixel_lm's mode and sum path, where the gathered route launches it
+        gathered = sh.taken == "gathered" and device.type == "cuda"
         sh.mode = (launch_mode(model, layout, constraint, window_shape,
-                               device, streaming)
-                   if sh.taken == "gathered" and device.type == "cuda"
-                   else None)
+                               device, streaming) if gathered else None)
+        sh.sums = sum_path(model, layout, constraint) if gathered else None
         signal0 = params0[..., layout.signal_param_idx]
         sh.norm = torch.clamp(torch.amax(torch.abs(signal0), dim=1),
                               min=1e-6)
@@ -441,6 +441,7 @@ def _shard_solver(
             kernel_args = {"route": taken}
             if shs[0].mode is not None:
                 kernel_args["mode"] = shs[0].mode
+                kernel_args["sums"] = shs[0].sums
             # Refit-on-shift: a lane whose positions moved more than
             # max_shift is re-gathered around its new positions and solved
             # again.  The next round starts from the latest iterate, but
@@ -597,6 +598,7 @@ def _uses_global(layout, constraint) -> bool:
 _COUNTERS = (("fused_lm_2d", fused_lm_2d, "launches"),
              ("pixel_lm_resident", pixel_lm, "launches_resident"),
              ("pixel_lm_streamed", pixel_lm, "launches_streamed"),
+             ("pixel_lm_mma", pixel_lm, "launches_mma"),
              ("block_lm", block_lm, "launches"),
              ("tied_lm", tied_lm, "launches"),
              ("window_gather", window_gather, "launches"))

@@ -29,8 +29,8 @@ from clustertracking_tpu_torch.ops.fused_lm import (
     fused_lm_2d_reference, kernel_route)
 from clustertracking_tpu_torch.ops.gather import gather_stack, origins_for
 from clustertracking_tpu_torch.ops.pixel_lm import (
-    check_pixel_lm_args, occupancy, pick_streaming, pixel_lm,
-    pixel_lm_reference, smem_words)
+    check_pixel_lm_args, launch_mode, occupancy, pick_streaming, pixel_lm,
+    pixel_lm_reference, smem_words, sum_path)
 from clustertracking_tpu_torch.refine import _slot_bounds
 
 torch.set_num_threads(1)
@@ -180,10 +180,11 @@ def test_mode_choice_against_the_measured_budget():
     """Shared memory per warp as csrc/pixel_lm.cu lays it out, and the rule
     streaming=None applies to the occupancy calculator's warps per SM: a
     mode that holds fewer warps per SM than streamed (bound by registers)
-    streams, as config 3c's 16³ window does on an H100 (5 against 12); at
-    equal occupancy resident stays, as config 4's does there (20.7 KB per
-    warp, 8 warps per SM either way); a window whose resident warp fits no
-    block streams."""
+    streams, as config 3c's 16³ window does on an H100 (5 against 12) and,
+    since its sums run on the FP64 tensor cores, config 4's (20.7 KB per
+    warp resident: 10 warps per SM, against 20 streamed); at equal
+    occupancy resident stays; a window whose resident warp fits no block
+    streams."""
     assert smem_words(2, 0, True) == 2007   # fused_lm_2d.cu's core
     assert smem_words(3, 0, True) == 2135
     assert smem_words(3, 1521, False) == 2135 + 2 * 1521
@@ -329,12 +330,14 @@ EDGE_3D = {
     "V14": (False, dict(MODES_3D)),
     "V15": (False, dict(MODES_3D, background="cluster")),
 }
+# and a slot count inside the tensor-core sums' range (SUM_CASES)
+LAYOUTS_3D = dict(EDGE_3D, V12=(False, {"size_y": "var", "size_x": "var"}))
 
 
 def _edge_inputs_3d(case, B=4, shape=(32, 48, 48), window=(7, 9, 9)):
-    """Config 4's dimers with noise, fit with an EDGE_3D layout (the
+    """Config 4's dimers with noise, fit with a LAYOUTS_3D layout (the
     isotropic ones take size_y as their one size)."""
-    iso, modes = EDGE_3D[case]
+    iso, modes = LAYOUTS_3D[case]
     frames, fidx, params0, _, _ = example_batch_3d(B=B, shape=shape)
     frames = frames + np.random.default_rng(7).normal(
         0.0, 1.0, frames.shape).astype(np.float32)
@@ -446,3 +449,112 @@ def test_kernel_matches_plain_at_the_design_edges_2d_on_the_card(
     np.testing.assert_array_equal(res_k.npix.cpu().numpy(),
                                   res_p.npix.cpu().numpy())
 
+
+
+# The buckets whose sums run on the FP64 tensor cores (gauss, 11 to 14
+# kernel slots) and their neighbours: id -> (rank, EDGE case, sum path).
+SUM_CASES = {
+    "3d_V10": (3, "V10", "fp32_regs"),
+    "3d_V11": (3, "V11", "f64_mma"),
+    "3d_V12": (3, "V12", "f64_mma"),
+    "3d_V14": (3, "V14", "f64_mma"),
+    "3d_V15": (3, "V15", "fp32_regs"),
+    "2d_V8": (2, "V8", "fp32_regs"),
+    "2d_V11": (2, "V11", "f64_mma"),
+    "2d_V14": (2, "V14", "f64_mma"),
+    "2d_V15": (2, "V15", "fp32_regs"),
+}
+
+
+def _sum_case_inputs(case, B):
+    """A LAYOUTS_3D or (2D) test_torch_fused_lm.py EDGE_CASES bucket, its
+    windows gathered: (layout, pixel_lm's args, kw)."""
+    ndim, edge, _ = SUM_CASES[case]
+    if ndim == 3:
+        return _edge_inputs_3d(edge, B=B, shape=(32, 96, 96))
+    from test_torch_fused_lm import edge_case_inputs
+
+    lay, args, kw = edge_case_inputs(edge, B=B)
+    vect0, params0, frames, fidx, pos0, origin, norm, valid, fvalid = args
+    pixels = gather_stack(frames, fidx, origin, kw["window_shape"])
+    return lay, [vect0, params0, pixels, pos0, origin, norm, valid,
+                 fvalid], kw
+
+
+@pytest.mark.parametrize("case", list(SUM_CASES))
+def test_sum_path_names_the_tensor_core_buckets(case):
+    """``sum_path``: gauss buckets of 11 to 14 kernel slots, 2D and 3D, sum
+    on the FP64 tensor cores, their neighbours in float32, and so does no
+    other profile."""
+    ndim, edge, expect = SUM_CASES[case]
+    if ndim == 3:
+        iso, modes = LAYOUTS_3D[edge]
+        lay = build_layout(get_model("gauss"), 3, iso, 2, modes)
+    else:
+        from test_torch_fused_lm import EDGE_CASES
+        n, modes = EDGE_CASES[edge][:2]
+        lay = build_layout(get_model("gauss"), 2, True, n, modes)
+    assert lay.n_slots == int(edge[1:])
+    assert sum_path(get_model("gauss"), lay) == expect
+    assert sum_path(get_model("ring"), build_layout(
+        get_model("ring"), 3, False, 2, dict(MODES_3D))) == "fp32_regs"
+
+
+@pytest.mark.parametrize("config,modes,expect", [
+    ("3b", {}, "fp32_regs"),
+    ("3c", {}, "fp32_regs"),
+    ("3c", {"size": "var"}, "f64_mma"),
+])
+def test_sum_path_of_rigid_buckets(config, modes, expect):
+    """A rigid bucket takes the tensor-core sums by its compact vector:
+    configs 3b (7 slots) and 3c (10) stay in float32 registers; config 3c
+    with its sizes fitted solves 14 and takes them."""
+    from clustertracking_tpu_torch.entry import _rigid_configs
+
+    c = _rigid_configs()[config]
+    lay = build_layout(get_model("gauss"), c["ndim"], True,
+                       c["con"].cluster_size, modes)
+    assert sum_path(get_model("gauss"), lay, c["con"]) == expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SUM_CASES))
+def test_sums_match_plain_in_both_modes_on_the_card(case):
+    """csrc/pixel_lm.cu, resident and streamed, on each SUM_CASES bucket
+    (B=64, 60 iterations): against ``pixel_lm_reference`` positions 1e-3
+    px, cost 1e-3 relative above the rms floor, converged and npix equal;
+    the two modes bit for bit; ``launches_mma`` counts each launch on the
+    tensor-core path once, and no other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lay, args, kw = _sum_case_inputs(case, B=64)
+    args = [a.to("cuda") if a is not None else None for a in args]
+    kw["max_iter"] = 60
+    mma = SUM_CASES[case][2] == "f64_mma"
+    before = pixel_lm.launches_mma
+    res_r = pixel_lm(*args, **kw, streaming=False)
+    res_s = pixel_lm(*args, **kw, streaming=True)
+    res_p = pixel_lm_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert pixel_lm.launches_mma == before + 2 * int(mma)
+    pos = sorted({int(s) for p in lay.pos_param_idx
+                  for s in lay.slot_idx[:, p] if s >= 0})
+    _agree(res_r, res_p, pos)
+    np.testing.assert_array_equal(res_r.converged.cpu().numpy(),
+                                  res_p.converged.cpu().numpy())
+    for a, b in zip(res_r, res_s):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_config_4_holds_12_warps_an_sm_on_the_card():
+    """Config 4's window at V = 14: the mode ``launch_mode`` picks holds at
+    least 12 warps an SM by the occupancy calculator, as the tensor-core
+    sums leave the instantiation's registers room for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lay = build_layout(get_model("gauss"), 3, False, 2, dict(MODES_3D))
+    mode = launch_mode(get_model("gauss"), lay, None, WINDOW_3D, "cuda")
+    warps = occupancy(WINDOW_3D, n_slots=lay.n_slots)
+    assert warps[mode] >= 12, warps
+    assert warps[mode] == max(warps.values())

@@ -349,24 +349,35 @@ def test_gathered_route_names_its_mode_on_the_card(monkeypatch):
     """On CUDA config 4's bucket takes the gathered route: a trace holds
     ``window_gather_kernel`` and ``pixel_lm_kernel``, ``solver.gather``
     inside ``solver.kernel``, and ``solver.kernel``'s ``args`` name the
-    mode ``pixel_lm`` launched, which occupancy picks for 9x13x13:
-    resident."""
+    mode ``pixel_lm`` launched, the one ``launch_mode`` picks by occupancy
+    for 9x13x13 at V = 14 (streamed: its tensor-core sums leave the
+    registers room for more warps than resident's shared memory), and its
+    sums, ``f64_mma``, each launch counted in that mode's counter and in
+    ``launches_mma``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
+    from clustertracking_tpu_torch.entry import MODES_3D, WINDOW_3D
+    from clustertracking_tpu_torch.models import build_layout, get_model
+    from clustertracking_tpu_torch.ops.pixel_lm import launch_mode, pixel_lm
 
+    lay = build_layout(get_model("gauss"), 3, False, 2, dict(MODES_3D))
+    mode = launch_mode(get_model("gauss"), lay, None, WINDOW_3D, "cuda")
     solve, args = _solve_3d("auto", "cuda")
     solve(*args)                               # build, warm
-    resident = pixel_lm.launches_resident
+    counter = f"launches_{mode}"
+    launched, mma = getattr(pixel_lm, counter), pixel_lm.launches_mma
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         solve(*args)
         torch.cuda.synchronize()
-    assert pixel_lm.launches_resident > resident
+    assert getattr(pixel_lm, counter) > launched
+    assert (pixel_lm.launches_mma - mma
+            == getattr(pixel_lm, counter) - launched)
     kernels = {e.name() for e in prof.profiler.kineto_results.events()}
     assert any("pixel_lm_kernel" in k for k in kernels)
     assert any("window_gather_kernel" in k for k in kernels)
     opened = _recording(monkeypatch)
     solve(*args)
-    assert ("solver.kernel", "route=gathered mode=resident") in opened
+    assert ("solver.kernel",
+            f"route=gathered mode={mode} sums=f64_mma") in opened
     assert (GATHER, "B=8 window=9x13x13") in opened
