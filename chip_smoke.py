@@ -460,10 +460,10 @@ def _first_round_inputs(batch, device):
     origin = origins_for(pos_at, WINDOW, (FRAME, FRAME))
     norm = torch.clamp(torch.amax(st.params0[..., 1].abs(), dim=1), min=1e-6)
     fvalid = torch.ones((vect0.shape[0], 2), device=device)
-    lo, hi = _slot_bounds(layout, WINDOW, (FRAME, FRAME))
+    bounds = _slot_bounds(layout, WINDOW, (FRAME, FRAME), device=device)
     args = (vect0, st.params0, st.frames, st.frame_idx, pos_at, origin,
             norm, st.valid, fvalid)
-    kw = dict(model=model, layout=layout, window_shape=WINDOW, lo=lo, hi=hi,
+    kw = dict(model=model, layout=layout, window_shape=WINDOW, bounds=bounds,
               radius=RADIUS, max_iter=60)
     return args, kw, layout
 
@@ -752,11 +752,11 @@ def _first_round_inputs_3d(batch, device):
     pixels = gather_stack(st.frames, st.frame_idx, origin, WINDOW_3D)
     norm = torch.clamp(torch.amax(st.params0[..., 1].abs(), dim=1), min=1e-6)
     fvalid = torch.ones((vect0.shape[0], 2), device=device)
-    lo, hi = _slot_bounds(layout, WINDOW_3D, frame_shape)
+    bounds = _slot_bounds(layout, WINDOW_3D, frame_shape, device=device)
     args = (vect0, st.params0, pixels, pos_at, origin, norm, st.valid,
             fvalid)
-    kw = dict(model=model, layout=layout, window_shape=WINDOW_3D, lo=lo,
-              hi=hi, radius=RADIUS_3D, max_iter=60)
+    kw = dict(model=model, layout=layout, window_shape=WINDOW_3D,
+              bounds=bounds, radius=RADIUS_3D, max_iter=60)
     return st, args, kw, layout
 
 
@@ -1169,8 +1169,7 @@ def phase_stream2d(device, smi):
     from clustertracking_tpu_torch.entry import RADIUS, example_batch
     from clustertracking_tpu_torch.interop import from_reference
     from clustertracking_tpu_torch.models import get_model
-    from clustertracking_tpu_torch.ops.fused_lm import kernel_route
-    from clustertracking_tpu_torch.refine import _bucket_solver
+    from clustertracking_tpu_torch.refine import _bucket_solver, kernel_route
 
     batch = example_batch(B=B_3D, frame_size=FRAME, grid_pitch=PITCH,
                           with_truth=True)
@@ -1290,11 +1289,12 @@ def _round_inputs(model, layout, batch, window, radius, device, gathered,
     origin = origins_for(pos_at, window, frame_shape)
     norm = torch.clamp(torch.amax(st.params0[..., 1].abs(), dim=1), min=1e-6)
     fvalid = torch.ones(pos_at.shape[:2], device=device)
-    lo, hi = _slot_bounds(layout, window, frame_shape, constraint=constraint)
+    bounds = _slot_bounds(layout, window, frame_shape, constraint=constraint,
+                          device=device)
     src = ((gather_stack(st.frames, st.frame_idx, origin, window),)
            if gathered else (st.frames, st.frame_idx))
     args = (vect0, st.params0, *src, pos_at, origin, norm, st.valid, fvalid)
-    kw = dict(model=model, layout=layout, window_shape=window, lo=lo, hi=hi,
+    kw = dict(model=model, layout=layout, window_shape=window, bounds=bounds,
               radius=radius, max_iter=60, constraint=constraint)
     return args, kw
 
@@ -2232,15 +2232,12 @@ def _mid_descent(res_k, res_p, args, kw, what):
     spreads of the kernel and of the host's plain version against the
     card's are printed beside it.  Returns both results without those
     lanes, and a note."""
-    import torch
-
     from clustertracking_tpu_torch.ops.block_lm import block_lm_reference
 
     mi = kw["max_iter"]
     cap = (res_k.n_iter >= mi) | (res_p.n_iter >= mi)
     host = block_lm_reference(
-        *[a.cpu() for a in args],
-        **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+        *[a.cpu() for a in args], **dict(kw, bounds=kw["bounds"].to("cpu")))
     cp = res_p.cost[cap].double().cpu().numpy()
     ck = res_k.cost[cap].double().cpu().numpy()
     rel_k = np.abs(ck - cp) / np.maximum(cp, 1e-30)
@@ -2326,11 +2323,11 @@ def _chain_bucket(n, B, device, seed=40):
                                   dim=1), min=1e-6)
     valid = torch.ones(B, dtype=torch.bool, device=device)
     valid[-2:] = False
-    lo, hi = _slot_bounds(layout, window, shape)
     args = (layout.vect_from_params(params), params, pixels, mask, origin,
             norm, valid, fvalid)
-    kw = dict(model=model, layout=layout, window_shape=window, lo=t(lo),
-              hi=t(hi), max_iter=60)
+    kw = dict(model=model, layout=layout, window_shape=window,
+              bounds=_slot_bounds(layout, window, shape, device=device),
+              max_iter=60)
     return args, kw
 
 
@@ -4476,12 +4473,12 @@ def _tied_bucket(name, device, seed=14, B=None):
     mask = radius_mask(pos_at, origin, window, radius, fvalid=fv)
     norm = torch.clamp(torch.amax(params_t[..., lay.signal_param_idx].abs(),
                                   dim=1), min=1e-6)
-    lo, hi = _slot_bounds(lay, window, shape, (), con)
     args = (vect0.contiguous(), params_t, pixels, mask, origin, norm,
             t(valid), fv)
     kw = dict(model=model, layout=lay, window_shape=window,
-              global_slots=_tied_slots(lay, con), lo=lo, hi=hi, max_iter=60,
-              constraint=con)
+              global_slots=_tied_slots(lay, con),
+              bounds=_slot_bounds(lay, window, shape, (), con, device),
+              max_iter=60, constraint=con)
     return args, kw
 
 

@@ -172,7 +172,7 @@ def cluster_ids(coords: np.ndarray, frames: Optional[np.ndarray], separation,
     for idx in groups:
         if backend == "device" or (
                 backend == "auto" and len(idx) >= _DEVICE_MIN_FEATURES):
-            from .refine import _resolve_device
+            from .utils.device import _resolve_device
 
             labels = _labels_device(
                 coords[idx], separation,

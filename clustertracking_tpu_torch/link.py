@@ -91,7 +91,7 @@ def link(
         out.attrs["link_backend"] = f"sharded:{backend}"
         return out
     if backend in ("device", "device-binned"):
-        from .refine import _resolve_device
+        from .utils.device import _resolve_device
 
         out = _link_device(f, search_range, memory, pos_columns, t_column,
                            _resolve_device(device, "link"),

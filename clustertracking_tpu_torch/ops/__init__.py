@@ -1,6 +1,6 @@
 """Device compute ops: residuals, LM solver, gather, the LM kernels."""
 from .block_lm import block_lm, block_lm_reference
-from .fused_lm import fused_lm_2d, fused_lm_2d_reference, kernel_route
+from .fused_lm import fused_lm_2d, fused_lm_2d_reference
 from .lm import LMResult, lm_solve, lm_solve_global
 from .pixel_lm import pixel_lm, pixel_lm_reference
 from .residual import make_model_fns, window_offsets
@@ -14,7 +14,6 @@ __all__ = [
     "block_lm_reference",
     "fused_lm_2d",
     "fused_lm_2d_reference",
-    "kernel_route",
     "lm_solve",
     "lm_solve_global",
     "make_model_fns",

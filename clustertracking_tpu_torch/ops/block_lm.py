@@ -22,7 +22,8 @@ Both take::
 
     vect0 [B, V] f32, const_params [B, n, P] f32, pixels [B, Npix] f32
     (``window_gather``), mask [B, Npix] f32, origin [B, D] i32, norm [B]
-    f32, valid [B] bool, fvalid [B, n] f32 or None, lo / hi [V] f32
+    f32, valid [B] bool, fvalid [B, n] f32 or None, bounds
+    (``ops/pixel_lm.py::SlotBounds``)
 
 and return ``LMResult(x, cost, n_iter, converged, npix)``.  The mask is
 ``ops/gather.py::radius_mask``'s (``/ r``), computed with torch before the
@@ -83,7 +84,7 @@ def smem_words(D, prof, V, n):
 
 def block_lm_reference(vect0, const_params, pixels, mask, origin, norm,
                        valid, fvalid=None, *, model, layout, window_shape,
-                       lo, hi, max_iter=60, ftol=1.49e-8, xtol=1.49e-8,
+                       bounds, max_iter=60, ftol=1.49e-8, xtol=1.49e-8,
                        lam0=1e-3, lam_up=4.0, lam_down=0.25, lam_max=1e10):
     """Plain PyTorch version of ``block_lm``: ``lm_solve`` on
     ``make_model_fns``'s closures, as the bucket solver's plain route
@@ -96,20 +97,21 @@ def block_lm_reference(vect0, const_params, pixels, mask, origin, norm,
         fns.residual, fns.residual_jac, vect0,
         (const_params, pixels, mask, origin, norm) + extra,
         max_iter=max_iter, ftol=ftol, xtol=xtol, lam0=lam0, lam_up=lam_up,
-        lam_down=lam_down, lam_max=lam_max, lower=lo, upper=hi,
-        valid=valid,
+        lam_down=lam_down, lam_max=lam_max, lower=bounds.lo,
+        upper=bounds.hi, valid=valid,
     )
     return res._replace(npix=mask.sum(dim=1))
 
 
 def check_block_lm_args(vect0, const_params, pixels, mask, origin, norm,
-                        valid, fvalid, lo, hi, *, model, layout,
-                        window_shape):
+                        valid, fvalid, *, model, layout, window_shape,
+                        bounds):
     """Raise on anything ``csrc/block_lm.cu`` does not take: a model with no
     kernel profile (``NotImplementedError``: a custom model is a Python
     callable), a window rank other than 2 or 3, a parameter layout, slot
-    or feature count outside the kernel's, and tensors of the wrong dtype,
-    shape, device or layout."""
+    or feature count outside the kernel's, bounds built for another
+    configuration or device, and tensors of the wrong dtype, shape, device
+    or layout."""
     who = "block_lm"
     prof = profile_tag(model)
     if prof is None:
@@ -149,8 +151,7 @@ def check_block_lm_args(vect0, const_params, pixels, mask, origin, norm,
     check_tensor(who, "norm", norm, f32, (B,), device)
     check_tensor(who, "valid", valid, torch.bool, (B,), device)
     check_tensor(who, "fvalid", fvalid, f32, (B, n), device)
-    check_tensor(who, "lo", lo, f32, (V,), device)
-    check_tensor(who, "hi", hi, f32, (V,), device)
+    bounds.check(who, layout, None, V, device)
 
 
 _ARGTYPES = (
@@ -187,7 +188,7 @@ def _library():
 
 
 def block_lm(vect0, const_params, pixels, mask, origin, norm, valid,
-             fvalid=None, *, model, layout, window_shape, lo, hi,
+             fvalid=None, *, model, layout, window_shape, bounds,
              max_iter=60, ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3,
              lam_up=4.0, lam_down=0.25, lam_max=1e10):
     """LM solve of one bucket, one thread block per cluster (see the module
@@ -198,9 +199,9 @@ def block_lm(vect0, const_params, pixels, mask, origin, norm, valid,
     other device and on arguments the kernel does not take,
     ``NotImplementedError`` on CUDA for a custom model, and
     ``RuntimeError`` when the kernel does not build or launch."""
-    kw = dict(model=model, layout=layout, window_shape=window_shape, lo=lo,
-              hi=hi, max_iter=max_iter, ftol=ftol, xtol=xtol, lam0=lam0,
-              lam_up=lam_up, lam_down=lam_down, lam_max=lam_max)
+    kw = dict(model=model, layout=layout, window_shape=window_shape,
+              bounds=bounds, max_iter=max_iter, ftol=ftol, xtol=xtol,
+              lam0=lam0, lam_up=lam_up, lam_down=lam_down, lam_max=lam_max)
     if pixels.device.type == "cpu":
         return block_lm_reference(vect0, const_params, pixels, mask, origin,
                                   norm, valid, fvalid, **kw)
@@ -230,7 +231,7 @@ def blocks_per_sm(D, prof, V, n):
 
 
 def _launch(vect0, const_params, pixels, mask, origin, norm, valid, fvalid,
-            clocks, *, model, layout, window_shape, lo, hi, max_iter=60,
+            clocks, *, model, layout, window_shape, bounds, max_iter=60,
             ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3, lam_up=4.0,
             lam_down=0.25, lam_max=1e10):
     """Check the arguments and launch the kernel (counted in
@@ -244,15 +245,13 @@ def _launch(vect0, const_params, pixels, mask, origin, norm, valid, fvalid,
     if fvalid is None:
         fvalid = torch.ones((B, n), dtype=torch.float32, device=device)
     check_block_lm_args(vect0, const_params, pixels, mask, origin, norm,
-                        valid, fvalid, lo, hi, model=model, layout=layout,
-                        window_shape=window_shape)
+                        valid, fvalid, model=model, layout=layout,
+                        window_shape=window_shape, bounds=bounds)
     D = len(window_shape)
     wz, wy, wx = (1,) + tuple(window_shape) if D == 2 else window_shape
     V = layout.n_slots
     f32, i32 = torch.float32, torch.int32
     lib = _library()
-    slot_idx = torch.as_tensor(np.asarray(layout.slot_idx, np.int32),
-                               device=device)
     valid_i = valid.to(i32)
     # each in-mask pixel's (value, mask / norm, that / n, index)
     scratch = torch.empty((B, wz * wy * wx, 4), dtype=f32, device=device)
@@ -265,8 +264,9 @@ def _launch(vect0, const_params, pixels, mask, origin, norm, valid, fvalid,
         rc = lib.block_lm_launch(
             pixels.data_ptr(), mask.data_ptr(), origin.data_ptr(),
             vect0.data_ptr(), const_params.data_ptr(), norm.data_ptr(),
-            valid_i.data_ptr(), fvalid.data_ptr(), slot_idx.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), scratch.data_ptr(),
+            valid_i.data_ptr(), fvalid.data_ptr(),
+            bounds.kernel.slot_idx.data_ptr(), bounds.lo.data_ptr(),
+            bounds.hi.data_ptr(), scratch.data_ptr(),
             B, n, P, V, int(layout.isotropic), D, wz, wy, wx, int(max_iter),
             float(ftol), float(xtol), float(lam0), float(lam_up),
             float(lam_down), float(lam_max), float(1e6 * lam0),

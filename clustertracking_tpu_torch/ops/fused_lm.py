@@ -1,5 +1,5 @@
-"""Fused window-gather + LM solve for one 2D bucket: the CUDA kernel, its
-plain version, and the routing predicate of every kernel route.
+"""Fused window-gather + LM solve for one 2D bucket: the CUDA kernel and its
+plain version.
 
 Counterpart of ``clustertracking_tpu/ops/pallas_lm.py``, whose
 ``kernel_fused`` (the TPU route for 2D buckets, rigid ones included) cuts
@@ -15,14 +15,8 @@ Levenberg–Marquardt solve in one launch.  Here:
   for a CUDA tensor.
 - ``fused_lm_2d_reference`` is the plain PyTorch version of the same
   function: ``gather_stack`` then ``pixel_lm_reference``.
-- ``kernel_route`` is the static routing predicate, the counterpart of the
-  reference's ``pallas_available`` plus its ``fused_ok``: 'fused' for 2D
-  windows that fit ``fused_lm_2d``'s shared memory, 'gathered'
-  (``window_gather`` then ``pixel_lm``) for 3D windows and larger 2D ones,
-  'block' (``window_gather`` then ``ops/block_lm.py::block_lm``) for
-  unconstrained buckets of 20 slots or more, 'tied'
-  (``ops/tied_lm.py::tied_lm``) for buckets with slots tied across lanes,
-  None (``lm_solve`` / ``lm_solve_global``) for the rest.
+- ``fused_max_pixels`` is the largest window the kernel holds
+  (``refine.py::kernel_route`` routes larger ones elsewhere).
 
 Both versions take the reference's ``solve_fused`` arguments::
 
@@ -31,10 +25,11 @@ Both versions take the reference's ``solve_fused`` arguments::
     origin [B, 2] i32 (clamped window corners), norm [B] f32,
     valid [B] bool, fvalid [B, n] f32 or None
 
-(a rigid ``constraint``: vect0 [B, Qt + V] over refine.py's rigid layout)
-and return ``LMResult(x, cost, n_iter, converged, npix)``.  Lanes with
-``valid`` False are not solved: x is the clipped ``vect0`` and cost,
-n_iter, converged and npix are 0.
+and ``bounds`` (``ops/pixel_lm.py::SlotBounds``; a rigid ``constraint``:
+vect0 [B, Qt + V] over refine.py's rigid layout) and return
+``LMResult(x, cost, n_iter, converged, npix)``.  Lanes with ``valid``
+False are not solved: x is the clipped ``vect0`` and cost, n_iter,
+converged and npix are 0.
 """
 from __future__ import annotations
 
@@ -43,31 +38,16 @@ import ctypes
 import numpy as np
 import torch
 
-from ..models.packing import ParamLayout
-from ..models.registry import ModelSpec
-from .block_lm import BLOCK_MAX_FEATURES, BLOCK_MAX_SLOTS
 from .gather import gather_stack
 from .lm import LMResult
 from .pixel_lm import (
     MODEL_ARGTYPES, POSE_NGON_2D, check_pixel_lm_args, kernel_mask,
-    KernelProblem, pixel_lm_reference, pose_kind, profile_tag)
+    KernelProblem, pixel_lm_reference)
 from .pixel_lm import smem_words as _smem_words
-from .rigid import rigid_kernel_slots, rigid_supported
-from .tied_lm import tie_supported
 from .window_gather import check_tensor
 
 __all__ = ["check_kernel_args", "fused_lm_2d", "fused_lm_2d_reference",
-           "kernel_mask", "kernel_route"]
-
-# Buckets with this many kernel slots or more leave the warp kernels
-# (csrc/lm_core.cuh's kMaxSlots) for the block kernel, csrc/block_lm.cu, up
-# to its BLOCK_MAX_SLOTS; past that, or constrained, they take lm_solve.
-# The threshold is the reference's MXU crossover (pallas_lm.py:235), not
-# yet re-measured between the warp and the block kernels on the H100.
-_KERNEL_MAX_SLOTS = 20
-# Largest window, in pixels, the reference's kernels take (its streaming
-# cap, pallas_lm.py:148).
-_MAX_WINDOW_PIXELS = 1 << 18
+           "fused_max_pixels", "kernel_mask"]
 
 
 def fused_max_pixels(profile=0, pose=0):
@@ -78,71 +58,9 @@ def fused_max_pixels(profile=0, pose=0):
     return (200 * 1024 // 4 - _smem_words(2, 0, True, profile, pose)) // 2
 
 
-def kernel_route(model: ModelSpec, layout: ParamLayout, use_global: bool,
-                 constraint, window_shape):
-    """The kernel route of a bucket configuration: 'fused', 'gathered',
-    'block', 'tied' or None (``lm_solve``, or ``lm_solve_global`` for a
-    tied bucket).
-
-    The reference's ``pallas_available`` decides warp kernel or not:
-    zero-slot layouts, buckets at or past ``_KERNEL_MAX_SLOTS`` kernel
-    slots (a rigid bucket's compact length) and windows past
-    ``_MAX_WINDOW_PIXELS`` leave the warp kernels, and so do generic
-    (penalty) constraints and rigid ones the kernels do not inline
-    (positions not all fitted).  Its ``fused_ok`` decides which: 2D
-    windows within ``fused_max_pixels`` are fused, 3D windows and larger
-    2D ones are gathered (a rigid 2D bucket too large to fuse takes
-    ``lm_solve``).  Where the reference takes XLA's ``lm_solve`` for an
-    unconstrained bucket of ``_KERNEL_MAX_SLOTS`` to ``BLOCK_MAX_SLOTS``
-    slots and at most ``BLOCK_MAX_FEATURES`` features (config 5's
-    chains), the port takes 'block': ``window_gather``, then
-    ``csrc/block_lm.cu``.  Where it takes XLA's ``lm_solve_global`` for a
-    bucket with slots tied across lanes ('global' modes, a
-    ``dimer_global()`` distance), the port takes 'tied' (``window_gather``,
-    then ``ops/tied_lm.py::tied_lm``, ``csrc/tied_lm.cu``) for fewer than
-    ``_KERNEL_MAX_SLOTS`` kernel slots in a window within
-    ``_MAX_WINDOW_PIXELS``, unconstrained or rigid as ``tie_supported``
-    says (the warp kernels' poses with the distance tied); a tied bucket
-    of more slots or with a generic constraint takes ``lm_solve_global``.
-    Untied constrained buckets of ``_KERNEL_MAX_SLOTS`` or more, and
-    larger ones, take ``lm_solve``.  A custom model (``profile_tag``
-    None) is a Python callable no CUDA kernel can evaluate, so its
-    buckets take ``lm_solve`` or ``lm_solve_global``.  Every choice is
-    static, made before any launch, not a fallback."""
-    prof = profile_tag(model)
-    if prof is None:
-        return None
-    n_slots = layout.n_slots
-    npix = int(np.prod(window_shape))
-    if use_global:
-        if not tie_supported(layout, constraint):
-            return None
-        if constraint is not None:
-            n_slots = len(rigid_kernel_slots(layout, constraint)[1])
-        if 0 < n_slots < _KERNEL_MAX_SLOTS and npix <= _MAX_WINDOW_PIXELS:
-            return "tied"
-        return None
-    if constraint is not None:
-        if not rigid_supported(layout, constraint):
-            return None
-        n_slots = len(rigid_kernel_slots(layout, constraint)[1])
-    if n_slots < 1 or npix > _MAX_WINDOW_PIXELS:
-        return None
-    if n_slots >= _KERNEL_MAX_SLOTS:
-        if (constraint is None and n_slots <= BLOCK_MAX_SLOTS
-                and layout.n_features <= BLOCK_MAX_FEATURES):
-            return "block"
-        return None
-    if len(window_shape) == 2:
-        if npix <= fused_max_pixels(prof, pose_kind(layout, constraint)):
-            return "fused"
-        return None if constraint is not None else "gathered"
-    return "gathered"
-
-
 def fused_lm_2d_reference(vect0, const_params, frames, frame_idx, pos_at,
                           origin, norm, valid, fvalid=None, *, model,
-                          layout, window_shape, lo, hi, radius,
+                          layout, window_shape, bounds, radius,
                           max_iter=60, ftol=1.49e-8, xtol=1.49e-8,
                           lam0=1e-3, lam_up=4.0, lam_down=0.25,
                           lam_max=1e10, constraint=None):
@@ -152,7 +70,7 @@ def fused_lm_2d_reference(vect0, const_params, frames, frame_idx, pos_at,
     pixels = gather_stack(frames, frame_idx, origin, tuple(window_shape))
     return pixel_lm_reference(
         vect0, const_params, pixels, pos_at, origin, norm, valid, fvalid,
-        model=model, layout=layout, window_shape=window_shape, lo=lo, hi=hi,
+        model=model, layout=layout, window_shape=window_shape, bounds=bounds,
         radius=radius, max_iter=max_iter, ftol=ftol, xtol=xtol, lam0=lam0,
         lam_up=lam_up, lam_down=lam_down, lam_max=lam_max,
         constraint=constraint,
@@ -192,13 +110,14 @@ def _library():
 
 def check_kernel_args(vect0, const_params, frames, frame_idx, pos_at,
                       origin, norm, valid, fvalid, *, model, layout,
-                      window_shape, constraint=None):
+                      window_shape, bounds, constraint=None):
     """Raise on anything ``csrc/fused_lm_2d.cu`` does not take: a custom
     model (``NotImplementedError``: no kernel evaluates a Python
     callable), a window other than 2D (3D buckets take the gathered
     route), a constraint the rigid kernel does not inline, a parameter
-    layout, slot or feature count outside the kernel's, and tensors of the
-    wrong dtype, shape, device or layout."""
+    layout, slot or feature count outside the kernel's, bounds built for
+    another configuration or device, and tensors of the wrong dtype, shape,
+    device or layout."""
     if len(window_shape) != 2 or layout.ndim != 2:
         raise ValueError(
             "fused_lm_2d: takes 2D windows; 3D buckets take the gathered "
@@ -212,8 +131,8 @@ def check_kernel_args(vect0, const_params, frames, frame_idx, pos_at,
                          f"frame {(H, W)}")
     check_pixel_lm_args(vect0, const_params, None, pos_at, origin, norm,
                         valid, fvalid, model=model, layout=layout,
-                        window_shape=window_shape, who="fused_lm_2d",
-                        constraint=constraint)
+                        window_shape=window_shape, bounds=bounds,
+                        who="fused_lm_2d", constraint=constraint)
     device = frames.device
     check_tensor("fused_lm_2d", "frames", frames, torch.float32, (T, H, W),
                  device)
@@ -223,7 +142,7 @@ def check_kernel_args(vect0, const_params, frames, frame_idx, pos_at,
 
 def fused_lm_2d(vect0, const_params, frames, frame_idx, pos_at, origin,
                 norm, valid, fvalid=None, *, model, layout, window_shape,
-                lo, hi, radius, max_iter=60, ftol=1.49e-8, xtol=1.49e-8,
+                bounds, radius, max_iter=60, ftol=1.49e-8, xtol=1.49e-8,
                 lam0=1e-3, lam_up=4.0, lam_down=0.25, lam_max=1e10,
                 constraint=None):
     """Fused gather + LM solve of one bucket (see the module docstring).
@@ -232,8 +151,8 @@ def fused_lm_2d(vect0, const_params, frames, frame_idx, pos_at, origin,
     and, for a rigid ``constraint``, its n-gon pose inlined; CPU tensors
     get ``fused_lm_2d_reference``.  Raises ``NotImplementedError`` on CUDA
     for a custom model, which no kernel evaluates."""
-    kw = dict(model=model, layout=layout, window_shape=window_shape, lo=lo,
-              hi=hi, radius=radius, max_iter=max_iter, ftol=ftol,
+    kw = dict(model=model, layout=layout, window_shape=window_shape,
+              bounds=bounds, radius=radius, max_iter=max_iter, ftol=ftol,
               xtol=xtol, lam0=lam0, lam_up=lam_up, lam_down=lam_down,
               lam_max=lam_max, constraint=constraint)
     device = frames.device
@@ -250,14 +169,14 @@ def fused_lm_2d(vect0, const_params, frames, frame_idx, pos_at, origin,
     check_kernel_args(vect0, const_params, frames, frame_idx, pos_at,
                       origin, norm, valid, fvalid, model=model,
                       layout=layout, window_shape=window_shape,
-                      constraint=constraint)
+                      bounds=bounds, constraint=constraint)
     B = vect0.shape[0]
     n, P = layout.n_features, layout.n_params
     T, H, W = frames.shape
     wy, wx = (int(w) for w in window_shape)
     f32, i32 = torch.float32, torch.int32
-    kp = KernelProblem(vect0, layout, model, constraint, lo, hi, device)
-    if wy * wx > fused_max_pixels(kp.profile, kp.pose):
+    kp = KernelProblem(vect0, model, bounds)
+    if wy * wx > fused_max_pixels(kp.profile, kp.kernel.pose):
         raise ValueError(
             f"fused_lm_2d: a {wy}x{wx} window does not fit shared memory; "
             "such buckets take the gathered route (kernel_route)"
@@ -277,8 +196,9 @@ def fused_lm_2d(vect0, const_params, frames, frame_idx, pos_at, origin,
             frames.data_ptr(), T, H, W,
             frame_idx.data_ptr(), origin.data_ptr(), kp.x0.data_ptr(),
             const_params.data_ptr(), pos_at.data_ptr(), norm.data_ptr(),
-            valid_i.data_ptr(), fvalid.data_ptr(), kp.slot_idx.data_ptr(),
-            kp.lo.data_ptr(), kp.hi.data_ptr(),
+            valid_i.data_ptr(), fvalid.data_ptr(),
+            kp.kernel.slot_idx.data_ptr(),
+            kp.kernel.lo.data_ptr(), kp.kernel.hi.data_ptr(),
             B, n, P, Vk, int(layout.isotropic), wy, wx,
             inv_r[0], inv_r[1], int(max_iter), float(ftol), float(xtol),
             float(lam0), float(lam_up), float(lam_down), float(lam_max),

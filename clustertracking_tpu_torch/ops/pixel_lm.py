@@ -21,8 +21,11 @@ windows the fused 2D kernel cannot hold.  Here:
 - ``kernel_mask`` is the fit mask every LM kernel of the port builds.
 - ``profile_tag`` names the built-in profile a kernel evaluates
   (``csrc/lm_core.cuh``), None for a custom model, which no kernel runs.
-- ``KernelProblem`` prepares a launch's model and pose arguments: for a
-  rigid ``constraint`` the compact vector [pose, non-position slots]
+- ``SlotBounds`` is the form every LM wrapper of the port takes a bucket's
+  bounds in: device tensors of the whole vector, and the configuration's
+  kernel layout built from them on the first launch and kept.
+- ``KernelProblem`` prepares a launch's own arguments: for a rigid
+  ``constraint`` the compact vector [pose, non-position slots]
   (``ops/rigid.py::rigid_kernel_slots``) and its expansion back.
 
 Modes (``streaming``): resident keeps each warp's in-mask voxels and their
@@ -43,14 +46,17 @@ Both versions take the reference ``solve``'s arguments::
     pos_at [B, n, D] f32 (gather-time positions), origin [B, D] i32,
     norm [B] f32, valid [B] bool, fvalid [B, n] f32 or None
 
-(a rigid ``constraint``: vect0 [B, Qt + V] over refine.py's rigid layout,
-lo/hi alike) and return ``LMResult(x, cost, n_iter, converged, npix)``.
-Lanes with ``valid`` False are not solved: x is the clipped ``vect0`` and
-cost, n_iter, converged and npix are 0.
+and ``bounds`` (a ``SlotBounds``; a rigid ``constraint``: vect0 [B, Qt + V]
+over refine.py's rigid layout, the bounds alike) and return
+``LMResult(x, cost, n_iter, converged, npix)``.  Lanes with ``valid``
+False are not solved: x is the clipped ``vect0`` and cost, n_iter,
+converged and npix are 0.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import types
 
 import numpy as np
 import torch
@@ -63,10 +69,10 @@ from .residual import make_model_fns, window_offsets
 from .rigid import make_constrained_fns, rigid_kernel_slots, rigid_supported
 from .window_gather import check_tensor
 
-__all__ = ["KernelProblem", "check_pixel_lm_args", "kernel_mask",
-           "launch_mode", "occupancy", "pixel_lm", "pixel_lm_reference",
-           "pick_streaming", "pose_kind", "profile_tag", "smem_words",
-           "sum_path"]
+__all__ = ["KernelProblem", "SlotBounds", "check_pixel_lm_args",
+           "kernel_mask", "launch_mode", "occupancy", "pixel_lm",
+           "pixel_lm_reference", "pick_streaming", "pose_kind", "profile_tag",
+           "smem_words", "sum_path"]
 
 # Caps of csrc/lm_core.cuh (kMaxSlots, kMaxFeatures, kMaxSeries).
 _CUDA_MAX_SLOTS = 20
@@ -143,7 +149,7 @@ def kernel_mask(pos_at, origin, window_shape, radius, fvalid):
 
 def pixel_lm_reference(vect0, const_params, pixels, pos_at, origin, norm,
                        valid, fvalid=None, *, model, layout, window_shape,
-                       lo, hi, radius, max_iter=60, ftol=1.49e-8,
+                       bounds, radius, max_iter=60, ftol=1.49e-8,
                        xtol=1.49e-8, lam0=1e-3, lam_up=4.0, lam_down=0.25,
                        lam_max=1e10, constraint=None):
     """Plain PyTorch version of ``pixel_lm``: kernel mask, ``lm_solve``.
@@ -168,10 +174,8 @@ def pixel_lm_reference(vect0, const_params, pixels, pos_at, origin, norm,
         fns.residual, fns.residual_jac, vect0,
         (const_params, pixels, mask, origin, norm) + extra,
         max_iter=max_iter, ftol=ftol, xtol=xtol, lam0=lam0, lam_up=lam_up,
-        lam_down=lam_down, lam_max=lam_max,
-        lower=torch.as_tensor(np.asarray(lo, np.float32), device=device),
-        upper=torch.as_tensor(np.asarray(hi, np.float32), device=device),
-        valid=valid,
+        lam_down=lam_down, lam_max=lam_max, lower=bounds.lo,
+        upper=bounds.hi, valid=valid,
     )
     return LMResult(
         x=res.x,
@@ -225,82 +229,138 @@ def pick_streaming(warps):
     return warps["resident"] < warps["streamed"]
 
 
-class KernelProblem:
-    """A launch's model and pose arguments.
+class SlotBounds:
+    """A bucket configuration's slot bounds on one device: the form in which
+    every LM wrapper of the port, and its plain version, takes them.
 
-    x0 [B, Vk], lo/hi [Vk] and slot_idx [n, P] are the kernel's (compact
-    for a rigid bucket); ``expand(xk)`` gives the full vector back, the
-    inert position slots at their clipped start.  Every host→device copy
-    is made here, before the launch: a pageable copy waits for the
-    stream, and after the launch it would hold the host until the kernel
-    ends."""
+    ``lo`` / ``hi`` [V] f32 on ``device`` bound the whole solve vector (a
+    rigid ``constraint``: refine.py's rigid layout, [Qt + V]).  A kernel's
+    first launch builds the configuration's kernel layout from them
+    (``kernel``, ``tied``) and keeps it, so a caller that keeps its
+    ``SlotBounds``, as the bucket solver does per frame shape, copies no
+    constant to the device after that.  Every copy is made before a
+    launch: a pageable copy waits for the stream, and after the launch it
+    would hold the host until the kernel ends.  Built for one ``layout``
+    and ``constraint``; the kernel wrappers refuse it for others."""
 
-    def __init__(self, vect0, layout, model, constraint, lo, hi, device):
-        self.profile = profile_tag(model)
-        self.nx = len(model.extra_params)
-        self.pose = pose_kind(layout, constraint)
-        self.fit_dist = self.circ = self.rc_fixed = 0
-        self.base = self.xn = None
-        lo = np.asarray(lo, np.float32)
-        hi = np.asarray(hi, np.float32)
+    def __init__(self, layout, constraint, lo, hi, device="cpu"):
+        self.layout, self.constraint = layout, constraint
+        self.device = torch.device(device)
+        self.lo = torch.as_tensor(lo, dtype=torch.float32,
+                                  device=self.device)
+        self.hi = torch.as_tensor(hi, dtype=torch.float32,
+                                  device=self.device)
+        self._tied = {}
+
+    def to(self, device):
+        """These bounds on ``device`` (its kernel layout built anew)."""
+        return SlotBounds(self.layout, self.constraint, self.lo, self.hi,
+                          device)
+
+    @functools.cached_property
+    def kernel(self):
+        """The kernel layout: ``slot_idx`` [n, P] i32 and ``lo`` / ``hi``
+        [Vk] (a rigid bucket's compact vector [pose, non-position slots],
+        ``ops/rigid.py::rigid_kernel_slots``), the rigid vector's ``keep``
+        and inert ``drop`` columns (else None) and the pose's ``pose``,
+        ``fit_dist``, ``circ``, ``rc_fixed`` and ``base``."""
+        layout, constraint, device = self.layout, self.constraint, self.device
+        k = types.SimpleNamespace(
+            pose=pose_kind(layout, constraint), lo=self.lo, hi=self.hi,
+            keep=None, drop=None, fit_dist=0, circ=0, rc_fixed=0, base=None)
         slot_idx = np.asarray(layout.slot_idx, np.int32)
-        self.keep = None
         if constraint is not None:
-            Qt, keep, drop, remap = rigid_kernel_slots(layout, constraint)
-            self.keep = torch.as_tensor(keep, device=device)
+            _, keep, drop, remap = rigid_kernel_slots(layout, constraint)
             slot_idx = np.where(slot_idx >= 0,
                                 remap[np.maximum(slot_idx, 0)], -1)
-            # the full vector at its clipped start; the kernel's result
-            # lands in its kept columns (expand)
-            self._full = torch.clamp(
-                vect0, torch.as_tensor(lo, device=device),
-                torch.as_tensor(hi, device=device))
-            lo, hi = lo[keep], hi[keep]
-            self.xn = torch.amax(torch.abs(self._full[:, drop]),
-                                 dim=1).contiguous()
-            self.fit_dist = int(constraint.fit_dist)
+            k.keep = torch.as_tensor(keep, device=device)
+            k.drop = torch.as_tensor(drop, device=device)
+            k.lo, k.hi = self.lo[k.keep], self.hi[k.keep]
+            k.fit_dist = int(constraint.fit_dist)
             n, D = layout.n_features, layout.ndim
-            self.circ = float(circumradius_factor(n, D))
+            k.circ = float(circumradius_factor(n, D))
             if not constraint.fit_dist:
-                self.rc_fixed = float(self.circ * float(constraint.dist))
-            if self.pose == POSE_NGON_2D:
+                k.rc_fixed = float(k.circ * float(constraint.dist))
+            if k.pose == POSE_NGON_2D:
                 base = 2.0 * np.pi * np.arange(n) / n
-            elif self.pose == POSE_ROTVEC_3D:
+            elif k.pose == POSE_ROTVEC_3D:
                 base = base_vertices(n, 3)
             else:
                 base = np.zeros(1)
-            self.base = torch.as_tensor(
+            k.base = torch.as_tensor(
                 np.ascontiguousarray(base, np.float32), device=device)
-            vect0 = vect0[:, self.keep]
+        k.slot_idx = torch.as_tensor(slot_idx, dtype=torch.int32,
+                                     device=device)
+        return k
+
+    def tied(self, global_slots):
+        """The kernel slots of ``global_slots`` ([V] bool over the whole
+        vector), ascending, [G] i32 on the device, built once a mask: a
+        rigid bucket's compact vector keeps a tied distance at Qt − 1."""
+        mask = np.asarray(global_slots, bool)
+        key = mask.tobytes()
+        if key not in self._tied:
+            if self.constraint is not None:
+                mask = mask[rigid_kernel_slots(self.layout,
+                                               self.constraint)[1]]
+            self._tied[key] = torch.as_tensor(
+                np.flatnonzero(mask).astype(np.int32), device=self.device)
+        return self._tied[key]
+
+    def check(self, who, layout, constraint, V, device):
+        """Raise unless these are the bounds of ``layout`` and
+        ``constraint``, [V] f32 on ``device``."""
+        if self.layout is not layout or self.constraint is not constraint:
+            raise ValueError(f"{who}: bounds of another configuration")
+        for name, t in (("lo", self.lo), ("hi", self.hi)):
+            check_tensor(who, name, t, torch.float32, (V,), device)
+
+
+class KernelProblem:
+    """A launch's own arguments: ``x0`` [B, Vk] (compact for a rigid
+    bucket) and the rigid pose's ``xn``; ``expand(xk)`` gives the full
+    vector back, the inert position slots at their clipped start.  The
+    configuration's constants are ``bounds.kernel``'s."""
+
+    def __init__(self, vect0, model, bounds):
+        self.profile = profile_tag(model)
+        self.nx = len(model.extra_params)
+        self.kernel = k = bounds.kernel
+        self.xn = None
+        if k.keep is not None:
+            # the full vector at its clipped start; the kernel's result
+            # lands in its kept columns (expand)
+            self._full = torch.clamp(vect0, bounds.lo, bounds.hi)
+            self.xn = torch.amax(torch.abs(self._full[:, k.drop]),
+                                 dim=1).contiguous()
+            vect0 = vect0[:, k.keep]
         self.x0 = vect0.contiguous()
-        self.slot_idx = torch.as_tensor(slot_idx, dtype=torch.int32,
-                                        device=device)
-        self.lo = torch.as_tensor(lo, device=device)
-        self.hi = torch.as_tensor(hi, device=device)
 
     def args(self):
         """The launch's (prof, nx, pose, fit_dist, circ, rc_fixed, base,
         xn) arguments."""
+        k = self.kernel
         ptr = (lambda t: None if t is None else t.data_ptr())
-        return (self.profile, self.nx, self.pose, self.fit_dist,
-                self.circ, self.rc_fixed, ptr(self.base), ptr(self.xn))
+        return (self.profile, self.nx, k.pose, k.fit_dist, k.circ,
+                k.rc_fixed, ptr(k.base), ptr(self.xn))
 
     def expand(self, xk):
-        if self.keep is None:
+        if self.kernel.keep is None:
             return xk
-        self._full[:, self.keep] = xk
+        self._full[:, self.kernel.keep] = xk
         return self._full
 
 
 def check_pixel_lm_args(vect0, const_params, pixels, pos_at, origin, norm,
                         valid, fvalid, *, model, layout, window_shape,
-                        who="pixel_lm", constraint=None):
+                        bounds, who="pixel_lm", constraint=None):
     """Raise on anything ``csrc/pixel_lm.cu`` does not take: a model with no
     kernel profile (``NotImplementedError``: a custom model is a Python
     callable; ``kernel_route`` sends such buckets to ``lm_solve``), a
     constraint the rigid kernels do not inline, a window rank other than 2
     or 3, a parameter layout, slot or feature count outside the kernel's,
-    and tensors of the wrong dtype, shape, device or layout."""
+    bounds built for another configuration or device, and tensors of the
+    wrong dtype, shape, device or layout."""
     if profile_tag(model) is None:
         raise NotImplementedError(
             f"{who}: model {model.name!r} is not a built-in profile; no CUDA "
@@ -346,6 +406,7 @@ def check_pixel_lm_args(vect0, const_params, pixels, pos_at, origin, norm,
     check_tensor(who, "norm", norm, f32, (B,), device)
     check_tensor(who, "valid", valid, torch.bool, (B,), device)
     check_tensor(who, "fvalid", fvalid, f32, (B, n), device)
+    bounds.check(who, layout, constraint, V, device)
 
 
 # (prof, nx, pose, fit_dist, circ, rc_fixed, base, xn): lm_core.cuh's
@@ -412,30 +473,26 @@ def occupancy(window_shape, device="cuda", profile=0, pose=POSE_NONE,
     return out
 
 
-def _default_streaming(window_shape, device, profile, pose, n_slots):
-    key = (device.index if device.index is not None
-           else torch.cuda.current_device(), tuple(window_shape), profile,
-           pose, int(n_slots))
-    if key not in _MODE_CHOICE:
-        _MODE_CHOICE[key] = pick_streaming(
-            occupancy(window_shape, device, profile, pose, n_slots))
-    return _MODE_CHOICE[key]
-
-
 def launch_mode(model, layout, constraint, window_shape, device,
                 streaming=None):
     """'resident' or 'streamed': the mode ``pixel_lm`` launches for a
     bucket on the CUDA ``device``, as ``streaming`` forces it or, for
     None, as occupancy picks it."""
     if streaming is None:
-        streaming = _default_streaming(
-            window_shape, torch.device(device), profile_tag(model),
-            pose_kind(layout, constraint), _kernel_slots(layout, constraint))
+        device = torch.device(device)
+        key = (device.index if device.index is not None
+               else torch.cuda.current_device(), tuple(window_shape),
+               profile_tag(model), pose_kind(layout, constraint),
+               _kernel_slots(layout, constraint))
+        if key not in _MODE_CHOICE:
+            _MODE_CHOICE[key] = pick_streaming(
+                occupancy(window_shape, device, *key[2:]))
+        streaming = _MODE_CHOICE[key]
     return "streamed" if streaming else "resident"
 
 
 def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
-             fvalid=None, *, model, layout, window_shape, lo, hi, radius,
+             fvalid=None, *, model, layout, window_shape, bounds, radius,
              max_iter=60, ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3, lam_up=4.0,
              lam_down=0.25, lam_max=1e10, streaming=None, constraint=None):
     """LM solve of one bucket on gathered pixels (see the module
@@ -446,8 +503,8 @@ def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
     for a rigid 3D ``constraint``, its pose inlined; CPU tensors get
     ``pixel_lm_reference``.  Raises ``NotImplementedError`` on CUDA for a
     custom model, which no kernel evaluates."""
-    kw = dict(model=model, layout=layout, window_shape=window_shape, lo=lo,
-              hi=hi, radius=radius, max_iter=max_iter, ftol=ftol,
+    kw = dict(model=model, layout=layout, window_shape=window_shape,
+              bounds=bounds, radius=radius, max_iter=max_iter, ftol=ftol,
               xtol=xtol, lam0=lam0, lam_up=lam_up, lam_down=lam_down,
               lam_max=lam_max, constraint=constraint)
     device = pixels.device
@@ -462,7 +519,8 @@ def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
         fvalid = torch.ones((B, n), dtype=torch.float32, device=device)
     check_pixel_lm_args(vect0, const_params, pixels, pos_at, origin, norm,
                         valid, fvalid, model=model, layout=layout,
-                        window_shape=window_shape, constraint=constraint)
+                        window_shape=window_shape, bounds=bounds,
+                        constraint=constraint)
     D = len(window_shape)
     if constraint is not None and D != 3:
         raise ValueError("pixel_lm: a rigid 2D bucket takes fused_lm_2d "
@@ -470,10 +528,11 @@ def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
     wz, wy, wx = (1,) + tuple(window_shape) if D == 2 else window_shape
     f32, i32 = torch.float32, torch.int32
     lib = _library()
-    kp = KernelProblem(vect0, layout, model, constraint, lo, hi, device)
+    kp = KernelProblem(vect0, model, bounds)
     Vk = kp.x0.shape[1]
-    streaming = launch_mode(model, layout, constraint, window_shape, device,
-                            streaming) == "streamed"
+    if streaming is None:
+        streaming = launch_mode(model, layout, constraint, window_shape,
+                                device) == "streamed"
     scratch = (torch.empty((B, wz * wy * wx), dtype=i32, device=device)
                if streaming else None)
     valid_i = valid.to(i32)
@@ -489,8 +548,9 @@ def pixel_lm(vect0, const_params, pixels, pos_at, origin, norm, valid,
         rc = lib.pixel_lm_launch(
             pixels.data_ptr(), origin.data_ptr(), kp.x0.data_ptr(),
             const_params.data_ptr(), pos_at.data_ptr(), norm.data_ptr(),
-            valid_i.data_ptr(), fvalid.data_ptr(), kp.slot_idx.data_ptr(),
-            kp.lo.data_ptr(), kp.hi.data_ptr(),
+            valid_i.data_ptr(), fvalid.data_ptr(),
+            kp.kernel.slot_idx.data_ptr(),
+            kp.kernel.lo.data_ptr(), kp.kernel.hi.data_ptr(),
             scratch.data_ptr() if streaming else None,
             B, n, P, Vk, int(layout.isotropic), D, wz, wy, wx,
             inv_r[0], inv_r[1], inv_r[2], int(streaming), int(max_iter),

@@ -27,6 +27,7 @@ import torch
 
 from ..models.registry import get_model
 from ..utils import default_pos_columns, validate_tuple
+from ..utils.device import _resolve_device
 
 __all__ = ["render_frames", "frames_from_df"]
 
@@ -98,8 +99,6 @@ def render_frames(
             "window is required; use frames_from_df or pass "
             "window=ceil(10*max_size)+1 per axis"
         )
-    from ..refine import _resolve_device
-
     device = _resolve_device(device, "render_frames")
     model = get_model(fit_function)
 

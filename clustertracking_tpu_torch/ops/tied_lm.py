@@ -23,8 +23,7 @@ for it.  Here:
   one ``GlobalShard`` with the bucket's ``make_model_fns`` (or, rigid,
   ``make_constrained_fns``) closures.
 - ``tie_supported`` says whether the kernel takes a bucket's constraint
-  once its distance is tied; ``pack_tied`` puts the tied-slot mask and
-  the bounds into the kernel's (compact) layout.
+  once its distance is tied.
 
 Both take::
 
@@ -32,7 +31,8 @@ Both take::
     rigid layout), const_params [B, n, P] f32, pixels [B, Npix] f32
     (``window_gather``), mask [B, Npix] f32 (``radius_mask``: 0 or 1),
     origin [B, D] i32, norm [B] f32, valid [B] bool, fvalid [B, n] f32 or
-    None, global_slots [V] bool, lo / hi [V] f32 (numpy)
+    None, global_slots [V] bool, bounds (``ops/pixel_lm.py::SlotBounds``,
+    whose ``tied`` puts the tied slots into the kernel's compact layout)
 
 and return ``LMResult(x, cost, n_iter, converged, npix)`` as
 ``lm_solve_global`` defines them (npix: the mask's sum per lane).
@@ -55,8 +55,8 @@ from .rigid import make_constrained_fns, rigid_kernel_slots, rigid_supported
 from .window_gather import check_tensor
 
 __all__ = ["TIED_MAX_SLOTS", "check_tied_lm_args", "launch_plan",
-           "pack_tied", "slot_ceiling", "tie_supported", "tied_lm",
-           "tied_lm_clocks", "tied_lm_reference"]
+           "slot_ceiling", "tie_supported", "tied_lm", "tied_lm_clocks",
+           "tied_lm_reference"]
 
 # Kernel slots a tied bucket may have: fewer than lm_core.cuh's kMaxSlots
 # (a tied bucket of 20 slots or more takes lm_solve_global).
@@ -82,24 +82,9 @@ def tie_supported(layout, constraint) -> bool:
         [d - Qt for d in drop]])
 
 
-def pack_tied(layout, constraint, global_slots, lo, hi):
-    """The tied slots and bounds in the kernel's layout: (tied [G] int32,
-    the kernel slots of ``global_slots``, ascending; lo, hi [Vk] f32).  A
-    rigid bucket's kernel vector is the compact [pose, non-position
-    slots] (``rigid_kernel_slots``), so a tied distance at Qt − 1 stays
-    at Qt − 1."""
-    mask = np.asarray(global_slots, bool)
-    lo = np.asarray(lo, np.float32)
-    hi = np.asarray(hi, np.float32)
-    if constraint is not None:
-        keep = rigid_kernel_slots(layout, constraint)[1]
-        mask, lo, hi = mask[keep], lo[keep], hi[keep]
-    return np.flatnonzero(mask).astype(np.int32), lo, hi
-
-
 def tied_lm_reference(vect0, const_params, pixels, mask, origin, norm,
                       valid, fvalid=None, *, model, layout, window_shape,
-                      global_slots, lo, hi, max_iter=60, ftol=1.49e-8,
+                      global_slots, bounds, max_iter=60, ftol=1.49e-8,
                       xtol=1.49e-8, lam0=1e-3, lam_up=4.0, lam_down=0.25,
                       lam_max=1e10, constraint=None):
     """Plain PyTorch version of ``tied_lm``: ``lm_solve_global_shards`` on
@@ -117,9 +102,8 @@ def tied_lm_reference(vect0, const_params, pixels, mask, origin, norm,
         extra = ()
     shard = GlobalShard(
         fns.residual, fns.residual_jac, vect0,
-        (const_params, pixels, mask, origin, norm) + extra,
-        torch.as_tensor(np.asarray(lo, np.float32), device=device),
-        torch.as_tensor(np.asarray(hi, np.float32), device=device), valid)
+        (const_params, pixels, mask, origin, norm) + extra, bounds.lo,
+        bounds.hi, valid)
     res = lm_solve_global_shards(
         [shard], global_slots, max_iter=max_iter, ftol=ftol, xtol=xtol,
         lam0=lam0, lam_up=lam_up, lam_down=lam_down, lam_max=lam_max)[0]
@@ -128,14 +112,14 @@ def tied_lm_reference(vect0, const_params, pixels, mask, origin, norm,
 
 def check_tied_lm_args(vect0, const_params, pixels, mask, origin, norm,
                        valid, fvalid, *, model, layout, window_shape,
-                       global_slots, constraint=None):
+                       global_slots, bounds, constraint=None):
     """Raise on anything ``csrc/tied_lm.cu`` does not take: a custom model
     (``NotImplementedError``: no kernel evaluates a Python callable), a
     window rank other than 2 or 3, a parameter layout other than the
     model's, a constraint other than a rigid one the kernel inlines, no
     tied slot, ``TIED_MAX_SLOTS`` kernel slots or more, more features than
-    ``csrc/lm_core.cuh`` stages, and tensors of the wrong dtype, shape,
-    device or layout."""
+    ``csrc/lm_core.cuh`` stages, bounds built for another configuration or
+    device, and tensors of the wrong dtype, shape, device or layout."""
     who = "tied_lm"
     if profile_tag(model) is None:
         raise NotImplementedError(
@@ -181,6 +165,7 @@ def check_tied_lm_args(vect0, const_params, pixels, mask, origin, norm,
     check_tensor(who, "norm", norm, f32, (B,), device)
     check_tensor(who, "valid", valid, torch.bool, (B,), device)
     check_tensor(who, "fvalid", fvalid, f32, (B, n), device)
+    bounds.check(who, layout, constraint, V, device)
 
 
 # csrc/tied_lm.cu's plan constants: a CTA's shared memory on an H100, the
@@ -299,8 +284,8 @@ def _library():
 
 
 def tied_lm(vect0, const_params, pixels, mask, origin, norm, valid,
-            fvalid=None, *, model, layout, window_shape, global_slots, lo,
-            hi, max_iter=60, ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3,
+            fvalid=None, *, model, layout, window_shape, global_slots,
+            bounds, max_iter=60, ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3,
             lam_up=4.0, lam_down=0.25, lam_max=1e10, constraint=None):
     """The joint LM solve of one bucket (see the module docstring).
 
@@ -315,7 +300,7 @@ def tied_lm(vect0, const_params, pixels, mask, origin, norm, valid,
     return _launch(vect0, const_params, pixels, mask, origin, norm, valid,
                    fvalid, None, None, model=model, layout=layout,
                    window_shape=window_shape, global_slots=global_slots,
-                   lo=lo, hi=hi, max_iter=max_iter, ftol=ftol, xtol=xtol,
+                   bounds=bounds, max_iter=max_iter, ftol=ftol, xtol=xtol,
                    lam0=lam0, lam_up=lam_up, lam_down=lam_down,
                    lam_max=lam_max, constraint=constraint)
 
@@ -338,11 +323,11 @@ def tied_lm_clocks(vect0, const_params, pixels, mask, origin, norm, valid,
 
 
 def _launch(vect0, const_params, pixels, mask, origin, norm, valid, fvalid,
-            clocks, ceiling, *, model, layout, window_shape, global_slots, lo, hi,
-            max_iter=60, ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3, lam_up=4.0,
-            lam_down=0.25, lam_max=1e10, constraint=None):
+            clocks, ceiling, *, model, layout, window_shape, global_slots,
+            bounds, max_iter=60, ftol=1.49e-8, xtol=1.49e-8, lam0=1e-3,
+            lam_up=4.0, lam_down=0.25, lam_max=1e10, constraint=None):
     kw = dict(model=model, layout=layout, window_shape=window_shape,
-              global_slots=global_slots, lo=lo, hi=hi, max_iter=max_iter,
+              global_slots=global_slots, bounds=bounds, max_iter=max_iter,
               ftol=ftol, xtol=xtol, lam0=lam0, lam_up=lam_up,
               lam_down=lam_down, lam_max=lam_max, constraint=constraint)
     device = pixels.device
@@ -358,27 +343,23 @@ def _launch(vect0, const_params, pixels, mask, origin, norm, valid, fvalid,
     check_tied_lm_args(vect0, const_params, pixels, mask, origin, norm,
                        valid, fvalid, model=model, layout=layout,
                        window_shape=window_shape, global_slots=global_slots,
-                       constraint=constraint)
+                       bounds=bounds, constraint=constraint)
     D = len(window_shape)
     wz, wy, wx = (1,) + tuple(window_shape) if D == 2 else window_shape
     npix = wz * wy * wx
     f32, i32 = torch.float32, torch.int32
-    tied, lo_k, hi_k = pack_tied(layout, constraint, global_slots, lo, hi)
-    kp = KernelProblem(vect0, layout, model, constraint, lo, hi, device)
+    kp = KernelProblem(vect0, model, bounds)
+    tied = bounds.tied(global_slots)
     V, G = kp.x0.shape[1], len(tied)
     K = (V + 1) * (V + 2) // 2
     NS = 1 + G + G * (G + 1) // 2
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     plan = launch_plan(
-        B, V, window_shape, D, kp.profile, kp.pose, G,
+        B, V, window_shape, D, kp.profile, kp.kernel.pose, G,
         sms=torch.cuda.get_device_properties(index).multi_processor_count,
         ceiling=ceiling)
     ctas = plan["ctas"]
-    # every host→device copy before the launch (KernelProblem's note)
-    tied_t = torch.as_tensor(tied, device=device)
-    lo_t = torch.as_tensor(lo_k, device=device)
-    hi_t = torch.as_tensor(hi_k, device=device)
     lib = _library()
     valid_i = valid.to(i32)
     # scratch: the pixel lists (offset, value pairs) and the iterations;
@@ -400,8 +381,9 @@ def _launch(vect0, const_params, pixels, mask, origin, norm, valid, fvalid,
         rc = lib.tied_lm_launch(
             pixels.data_ptr(), mask.data_ptr(), origin.data_ptr(),
             kp.x0.data_ptr(), const_params.data_ptr(), norm.data_ptr(),
-            valid_i.data_ptr(), fvalid.data_ptr(), kp.slot_idx.data_ptr(),
-            tied_t.data_ptr(), lo_t.data_ptr(), hi_t.data_ptr(),
+            valid_i.data_ptr(), fvalid.data_ptr(),
+            kp.kernel.slot_idx.data_ptr(),
+            tied.data_ptr(), kp.kernel.lo.data_ptr(), kp.kernel.hi.data_ptr(),
             ws_i.data_ptr(), pf, pd, pd + 8 * ctas * G, pf + 4 * ls,
             B, n, P, V, G, int(layout.isotropic), D, wz, wy, wx,
             int(max_iter), float(ftol), float(xtol), float(lam0),

@@ -133,7 +133,7 @@ def link_sharded(
     if mesh is not None:
         devices = [mesh.devices[s % mesh.size] for s in range(S)]
     else:
-        from ..refine import _resolve_device
+        from ..utils.device import _resolve_device
 
         devices = [_resolve_device(device, "link_sharded")] * S
     Ts = -(-T // S)

@@ -32,9 +32,9 @@ from .link import link as _link
 from .ops.locate import (
     bandpass, feature_sizes, gaussian_blur, local_maxima_topk, np_median,
     np_percentile, tile_threshold_map)
-from .refine import (
-    _mesh_device, _resolve_device, _stack_frames, refine_leastsq)
+from .refine import _mesh_device, _stack_frames, refine_leastsq
 from .utils import default_pos_columns, default_size_columns, validate_tuple
+from .utils.device import _resolve_device
 
 if TYPE_CHECKING:
     import pandas as pd

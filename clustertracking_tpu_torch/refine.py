@@ -7,8 +7,8 @@ cluster of the bucket together:
 - window gather, fit-region mask, parameter packing, LM solve and the
   refit-on-shift outer loop (``max_iter``/``max_shift``) all run on the
   device that holds the frames; on CUDA each bucket takes the kernel route
-  ``ops/fused_lm.py::kernel_route`` names: 'fused' (2D windows,
-  ``csrc/fused_lm_2d.cu``), 'gathered' (3D and large 2D windows,
+  ``kernel_route`` names, decided once per device (``route_on``): 'fused' (2D
+  windows, ``csrc/fused_lm_2d.cu``), 'gathered' (3D and large 2D windows,
   ``csrc/window_gather.cu`` then ``csrc/pixel_lm.cu``, once per refit
   round), 'block' (unconstrained buckets of 20 slots or more, such as
   config 5's chains: ``csrc/window_gather.cu`` then
@@ -63,21 +63,22 @@ from . import diagnostics
 from .constraints import (
     circumradius_factor, pose_dim, positions_to_pose, wrap_constraint_dicts)
 from .find import cluster_ids
-from .models.packing import build_layout
+from .models.packing import ParamLayout, build_layout
 from .models.registry import ModelSpec, get_model
 from .ops.collectives import Mesh, join_lanes, split_lanes
-from .ops.block_lm import (
-    BLOCK_MAX_FEATURES, BLOCK_MAX_SLOTS, block_lm, block_lm_reference)
-from .ops.fused_lm import (
-    _KERNEL_MAX_SLOTS, _MAX_WINDOW_PIXELS, fused_lm_2d, kernel_route)
+from .ops.block_lm import BLOCK_MAX_FEATURES, BLOCK_MAX_SLOTS, block_lm
+from .ops.fused_lm import fused_lm_2d, fused_max_pixels
 from .ops.gather import gather_stack, origins_for, radius_mask
 from .ops.lm import GlobalShard, lm_solve, lm_solve_global_shards
-from .ops.pixel_lm import launch_mode, pixel_lm, sum_path
+from .ops.pixel_lm import (
+    SlotBounds, _kernel_slots, launch_mode, pixel_lm, pose_kind, profile_tag,
+    sum_path)
 from .ops.residual import make_model_fns
-from .ops.rigid import make_constrained_fns
-from .ops.tied_lm import tied_lm
+from .ops.rigid import make_constrained_fns, rigid_supported
+from .ops.tied_lm import tie_supported, tied_lm
 from .ops.window_gather import window_gather
 from .utils import default_size_columns, guess_pos_columns, validate_tuple
+from .utils.device import _resolve_device
 
 if TYPE_CHECKING:
     import pandas as pd
@@ -89,27 +90,79 @@ _LANE_PAD = 32  # lanes are padded to multiples of this (reference parity)
 _LM_BACKENDS = ("auto", "kernel", "torch")
 _GATHER_BACKENDS = ("auto", "torch")
 
+# Buckets with this many kernel slots or more leave the warp kernels
+# (csrc/lm_core.cuh's kMaxSlots) for the block kernel, csrc/block_lm.cu, up
+# to its BLOCK_MAX_SLOTS; past that, or constrained, they take lm_solve.
+# The threshold is the reference's MXU crossover (pallas_lm.py:235), not
+# yet re-measured between the warp and the block kernels on the H100.
+_KERNEL_MAX_SLOTS = 20
+# Largest window, in pixels, the reference's kernels take (its streaming
+# cap, pallas_lm.py:148).
+_MAX_WINDOW_PIXELS = 1 << 18
 
-def _route_taken(lm_backend, route, device):
-    """The route a bucket's solve takes: 'fused', 'gathered', 'block',
-    'tied' or 'torch'.
 
-    'auto' takes the bucket's kernel route (``kernel_route``) on CUDA;
-    'kernel' forces it (its plain versions on CPU); 'torch', or a bucket
-    with no kernel route, takes lm_solve (lm_solve_global when tied)."""
-    if route is not None and (lm_backend == "kernel" or (
-            lm_backend == "auto" and device.type == "cuda")):
-        return route
-    return "torch"
+def kernel_route(model: ModelSpec, layout: ParamLayout, use_global: bool,
+                 constraint, window_shape):
+    """The kernel route of a bucket configuration: 'fused', 'gathered',
+    'block', 'tied' or None (``lm_solve``, or ``lm_solve_global`` for a
+    tied bucket).
+
+    The reference's ``pallas_available`` decides warp kernel or not:
+    zero-slot layouts, buckets at or past ``_KERNEL_MAX_SLOTS`` kernel
+    slots (a rigid bucket's compact length) and windows past
+    ``_MAX_WINDOW_PIXELS`` leave the warp kernels, and so do generic
+    (penalty) constraints and rigid ones the kernels do not inline
+    (positions not all fitted).  Its ``fused_ok`` decides which: 2D
+    windows within ``fused_max_pixels`` are fused (``csrc/fused_lm_2d.cu``),
+    3D windows and larger 2D ones are gathered (``window_gather``, then
+    ``csrc/pixel_lm.cu``; a rigid 2D bucket too large to fuse takes
+    ``lm_solve``).  Where the reference takes XLA's ``lm_solve`` for an
+    unconstrained bucket of ``_KERNEL_MAX_SLOTS`` to ``BLOCK_MAX_SLOTS``
+    slots and at most ``BLOCK_MAX_FEATURES`` features (config 5's
+    chains), the port takes 'block': ``window_gather``, then
+    ``csrc/block_lm.cu``.  Where it takes XLA's ``lm_solve_global`` for a
+    bucket with slots tied across lanes ('global' modes, a
+    ``dimer_global()`` distance), the port takes 'tied' (``window_gather``,
+    then ``ops/tied_lm.py::tied_lm``, ``csrc/tied_lm.cu``) for fewer than
+    ``_KERNEL_MAX_SLOTS`` kernel slots in a window within
+    ``_MAX_WINDOW_PIXELS``, unconstrained or rigid as ``tie_supported``
+    says (the warp kernels' poses with the distance tied); a tied bucket
+    of more slots or with a generic constraint takes ``lm_solve_global``.
+    Untied constrained buckets of ``_KERNEL_MAX_SLOTS`` or more, and
+    larger ones, take ``lm_solve``.  A custom model (``profile_tag``
+    None) is a Python callable no CUDA kernel can evaluate, so its
+    buckets take ``lm_solve`` or ``lm_solve_global``.  Every choice is
+    static, made before any launch, not a fallback."""
+    prof = profile_tag(model)
+    if prof is None or not (
+            tie_supported(layout, constraint) if use_global
+            else constraint is None or rigid_supported(layout, constraint)):
+        return None
+    n_slots = _kernel_slots(layout, constraint)
+    npix = int(np.prod(window_shape))
+    if n_slots < 1 or npix > _MAX_WINDOW_PIXELS:
+        return None
+    if use_global:
+        return "tied" if n_slots < _KERNEL_MAX_SLOTS else None
+    if n_slots >= _KERNEL_MAX_SLOTS:
+        if (constraint is None and n_slots <= BLOCK_MAX_SLOTS
+                and layout.n_features <= BLOCK_MAX_FEATURES):
+            return "block"
+        return None
+    if len(window_shape) == 2:
+        if npix <= fused_max_pixels(prof, pose_kind(layout, constraint)):
+            return "fused"
+        return None if constraint is not None else "gathered"
+    return "gathered"
 
 
 def _slot_bounds(layout, window_shape, frame_shape, bounds_key=(),
-                 constraint=None):
-    """Per-slot f32 (lo, hi) of the optimizer vector: the user's
-    ``bounds`` (name, lo, hi) tuples plus the implicit ones — positions
-    stay inside the frame (a lane whose gradient vanishes cannot
-    random-walk away) and sizes stay in [0.05, largest window extent] (a
-    size through zero makes r² = 0/0).
+                 constraint=None, device="cpu"):
+    """The ``SlotBounds`` of a bucket on ``device``: per-slot f32 (lo, hi)
+    of the optimizer vector, the user's ``bounds`` (name, lo, hi) tuples
+    plus the implicit ones — positions stay inside the frame (a lane whose
+    gradient vanishes cannot random-walk away) and sizes stay in [0.05,
+    largest window extent] (a size through zero makes r² = 0/0).
 
     A rigid ``constraint`` prepends its Qt pose slots: the center stays in
     the frame, a fitted distance in [1e-3, (min window − 1)/(2·circ)] (the
@@ -147,7 +200,7 @@ def _slot_bounds(layout, window_shape, frame_shape, bounds_key=(),
             if s >= 0:
                 lo[Qt + s] = max(lo[Qt + s], 0.05)
                 hi[Qt + s] = min(hi[Qt + s], float(max(window_shape)))
-    return lo, hi
+    return SlotBounds(layout, constraint, lo, hi, device)
 
 
 @lru_cache(maxsize=256)
@@ -196,13 +249,16 @@ def _shard_solver(
     """Build one bucket configuration's solver over lanes split into
     shards.
 
-    Returns ``(solve_shards, layout, use_global, route)``:
+    Returns ``(solve_shards, layout, use_global, route_on)``:
     ``solve_shards`` takes a list of per-shard argument tuples (those of
-    ``_bucket_solver``'s ``solve``, each on its shard's device) and
-    returns one output tuple per shard; ``use_global`` says whether the
-    bucket ties slots across lanes, ``route`` is ``kernel_route``'s pick.
-    ``residual_factor`` weighs a generic constraint's penalty rows (by
-    its square root).
+    ``_bucket_solver``'s ``solve``, each on its shard's device; several
+    only for a tied bucket) and returns one output tuple per shard;
+    ``use_global`` says whether the bucket ties slots across lanes;
+    ``route_on(device, shards=1)`` is its route on a device.  The route
+    per device, the bounds (``SlotBounds``) per device and frame shape and
+    the model closures per device, where something calls them, are built
+    once.  ``residual_factor`` weighs a generic constraint's
+    penalty rows (by its square root).
 
     ``lm_backend`` as ``refine_leastsq``'s.  ``gather_backend``: 'auto'
     gathers windows with ``window_gather`` (the CUDA kernel on CUDA,
@@ -233,8 +289,33 @@ def _shard_solver(
             "more, no tied bucket under a generic constraint and no bucket "
             f"past {BLOCK_MAX_SLOTS} slots or {BLOCK_MAX_FEATURES} features"
         )
-    if use_global:
-        gslots = _tied_slots(layout, constraint)
+    gslots = _tied_slots(layout, constraint) if use_global else None
+    kind = ("" if constraint is None else "-rigid"
+            if constraint.kind == "rigid" else "-penalty")
+    kind += "-global" if use_global else ""
+    # the LM wrappers' keywords that do not change from call to call
+    lm_kw = dict(model=model, layout=layout, window_shape=window_shape,
+                 max_iter=lm_max_iter, ftol=ftol, xtol=xtol)
+    warp_kw = dict(lm_kw, radius=radius, constraint=constraint)
+
+    @lru_cache(maxsize=None)
+    def fns_on(device):
+        """The model closures on ``device``: ``make_model_fns``'s, or a
+        constrained bucket's ``make_constrained_fns``."""
+        if constraint is None:
+            return make_model_fns(model, layout, window_shape, device=device)
+        return make_constrained_fns(model, layout, window_shape, constraint,
+                                    residual_factor, device)
+
+    @lru_cache(maxsize=8)   # bounded: the callers choose the frame shapes
+    def bounds_on(device, frame_shape):
+        return _slot_bounds(layout, window_shape, frame_shape, bounds_key,
+                            constraint, device)
+
+    def positions_of(sh, vect):
+        if constraint is None:
+            return layout.vect_to_params(vect, sh.params0)[..., pos_idx]
+        return fns_on(sh.device).positions_of(vect, sh.params0)
 
     def setup(frames, frame_idx, params0, pose0, valid, fvalid=None):
         """One shard's (or the whole bucket's) solve state, on the device
@@ -243,47 +324,17 @@ def _shard_solver(
             frames=frames, frame_idx=frame_idx, params0=params0,
             valid=valid, device=frames.device, B=params0.shape[0],
             frame_shape=tuple(frames.shape[1:]))
-        device = sh.device
-        sh.taken = _route_taken(lm_backend, route, device)
-        # pixel_lm's mode and sum path, where the gathered route launches it
-        gathered = sh.taken == "gathered" and device.type == "cuda"
-        sh.mode = (launch_mode(model, layout, constraint, window_shape,
-                               device, streaming) if gathered else None)
-        sh.sums = sum_path(model, layout, constraint) if gathered else None
+        sh.bounds = bounds_on(sh.device, sh.frame_shape)
         signal0 = params0[..., layout.signal_param_idx]
         sh.norm = torch.clamp(torch.amax(torch.abs(signal0), dim=1),
                               min=1e-6)
-        sh.lo_np, sh.hi_np = _slot_bounds(layout, window_shape,
-                                          sh.frame_shape, bounds_key,
-                                          constraint)
-        sh.lo_b = torch.as_tensor(sh.lo_np, device=device)
-        sh.hi_b = torch.as_tensor(sh.hi_np, device=device)
         if constraint is None:
-            fns = make_model_fns(model, layout, window_shape, device=device)
-            sh.residual, sh.residual_jac = fns.residual, fns.residual_jac
             sh.vect0 = layout.vect_from_params(params0)
-            sh.Qt = 0
-
-            def positions_of(vect):
-                return layout.vect_to_params(vect, params0)[..., pos_idx]
-
-            def params_of(vect):
-                return layout.vect_to_params(vect, params0)
         else:
             # constrained buckets are exact-size: no pad features to gate
             fvalid = None
-            cfns = make_constrained_fns(model, layout, window_shape,
-                                        constraint, residual_factor, device)
-            sh.residual, sh.residual_jac = cfns.residual, cfns.residual_jac
-            sh.vect0 = cfns.vect_of(params0, pose0.to(params0.dtype))
-            sh.Qt = cfns.Qt
-
-            def positions_of(vect):
-                return cfns.positions_of(vect, params0)
-
-            def params_of(vect):
-                return cfns.params_of(vect, params0)
-        sh.positions_of, sh.params_of = positions_of, params_of
+            sh.vect0 = fns_on(sh.device).vect_of(params0,
+                                                 pose0.to(params0.dtype))
         sh.fvalid = fvalid
         sh.fv_extra = () if fvalid is None else (fvalid,)
         return sh
@@ -299,91 +350,133 @@ def _shard_solver(
 
     def window_of(sh, vect):
         """(positions, window origins) at ``vect``."""
-        pos_at = sh.positions_of(vect).contiguous()
+        pos_at = positions_of(sh, vect).contiguous()
         return pos_at, origins_for(pos_at, window_shape, sh.frame_shape)
 
-    def solve_round(sh, vect, need):
-        """One refit round of an untied bucket on its own device."""
+    def masked_windows(sh, vect):
+        """(positions, origins, windows, fit mask) at ``vect``."""
         pos_at, origin = window_of(sh, vect)
-        kw = dict(model=model, layout=layout,
-                  window_shape=window_shape, lo=sh.lo_np, hi=sh.hi_np,
-                  radius=radius, max_iter=lm_max_iter, ftol=ftol,
-                  xtol=xtol, constraint=constraint)
-        frames, frame_idx, params0 = sh.frames, sh.frame_idx, sh.params0
-        if sh.taken == "fused":
-            res = fused_lm_2d(vect, params0, frames, frame_idx, pos_at,
-                              origin, sh.norm, need, sh.fvalid, **kw)
-        elif sh.taken == "gathered":
-            pixels = gather_windows(sh, origin)
-            res = pixel_lm(vect, params0, pixels, pos_at, origin, sh.norm,
-                           need, sh.fvalid, streaming=streaming, **kw)
-        else:
-            pixels = gather_windows(sh, origin)
-            mask = radius_mask(pos_at, origin, window_shape, radius,
-                               fvalid=sh.fvalid)
-            if sh.taken == "block" or constraint is None:
-                # the block kernel, or its plain version: the same
-                # lm_solve call on every device
-                solve = (block_lm if sh.taken == "block"
-                         else block_lm_reference)
-                res = solve(vect, params0, pixels, mask, origin, sh.norm,
-                            need, sh.fvalid, model=model, layout=layout,
-                            window_shape=window_shape, lo=sh.lo_b,
-                            hi=sh.hi_b, max_iter=lm_max_iter, ftol=ftol,
-                            xtol=xtol)
-            else:
-                res = lm_solve(
-                    sh.residual, sh.residual_jac, vect,
-                    (params0, pixels, mask, origin, sh.norm),
-                    max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
-                    lower=sh.lo_b, upper=sh.hi_b, valid=need,
-                )._replace(npix=mask.sum(dim=1))
-        return res, pos_at
+        pixels = gather_windows(sh, origin)
+        return pos_at, origin, pixels, radius_mask(
+            pos_at, origin, window_shape, radius, fvalid=sh.fvalid)
 
-    def tied_round(shs, vects, needs):
-        """One refit round of a tied bucket: ONE joint solve over every
-        shard's lanes, the windows gathered on each shard's device.  On
-        one shard taking the 'tied' route it is ``tied_lm`` (the kernel on
-        CUDA, its plain version on CPU); otherwise, and always across
-        shards, whose sums cross devices, ``lm_solve_global_shards``."""
-        pos_ats, masks, parts = [], [], []
+    def each_shard(one):
+        """A round of every shard, each on its own: ``one(sh, vect, need)``
+        of each."""
+        return lambda shs, vects, needs: list(map(one, shs, vects, needs))
+
+    # One refit round of each route; the wrappers are looked up in this
+    # module when a round runs, so that a caller may wrap them.
+    @each_shard
+    def fused_round(sh, vect, need):
+        pos_at, origin = window_of(sh, vect)
+        return fused_lm_2d(vect, sh.params0, sh.frames, sh.frame_idx, pos_at,
+                           origin, sh.norm, need, sh.fvalid,
+                           bounds=sh.bounds, **warp_kw), pos_at
+
+    @each_shard
+    def gathered_round(sh, vect, need):
+        pos_at, origin = window_of(sh, vect)
+        mode = route_on(sh.device).mode
+        return pixel_lm(vect, sh.params0, gather_windows(sh, origin), pos_at,
+                        origin, sh.norm, need, sh.fvalid, bounds=sh.bounds,
+                        streaming=None if mode is None
+                        else mode == "streamed", **warp_kw), pos_at
+
+    @each_shard
+    def block_round(sh, vect, need):
+        pos_at, origin, pixels, mask = masked_windows(sh, vect)
+        return block_lm(vect, sh.params0, pixels, mask, origin, sh.norm,
+                        need, sh.fvalid, bounds=sh.bounds, **lm_kw), pos_at
+
+    @each_shard
+    def torch_round(sh, vect, need):
+        """``lm_solve`` on the bucket's closures (``block_lm``'s plain
+        version, on an unconstrained bucket)."""
+        pos_at, origin, pixels, mask = masked_windows(sh, vect)
+        fns = fns_on(sh.device)
+        return lm_solve(
+            fns.residual, fns.residual_jac, vect,
+            (sh.params0, pixels, mask, origin, sh.norm) + sh.fv_extra,
+            max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
+            lower=sh.bounds.lo, upper=sh.bounds.hi, valid=need,
+        )._replace(npix=mask.sum(dim=1)), pos_at
+
+    @each_shard
+    def tied_round(sh, vect, need):
+        """The joint round on one shard: ``tied_lm`` (the kernel on CUDA,
+        its plain version on CPU)."""
+        pos_at, origin, pixels, mask = masked_windows(sh, vect)
+        return tied_lm(vect, sh.params0, pixels, mask, origin, sh.norm, need,
+                       sh.fvalid, global_slots=gslots, bounds=sh.bounds,
+                       constraint=constraint, **lm_kw), pos_at
+
+    def global_round(shs, vects, needs):
+        """ONE joint ``lm_solve_global_shards`` over every shard's lanes,
+        the windows gathered on each shard's device and the sums
+        all-reduced."""
+        parts, masks, pos_ats = [], [], []
         for sh, vect, need in zip(shs, vects, needs):
-            pos_at, origin = window_of(sh, vect)
-            pixels = gather_windows(sh, origin)
-            mask = radius_mask(pos_at, origin, window_shape, radius,
-                               fvalid=sh.fvalid)
+            pos_at, origin, pixels, mask = masked_windows(sh, vect)
+            fns = fns_on(sh.device)
             parts.append(GlobalShard(
-                sh.residual, sh.residual_jac, vect,
+                fns.residual, fns.residual_jac, vect,
                 (sh.params0, pixels, mask, origin, sh.norm) + sh.fv_extra,
-                sh.lo_b, sh.hi_b, need))
-            pos_ats.append(pos_at)
+                sh.bounds.lo, sh.bounds.hi, need))
             masks.append(mask)
-        if len(shs) == 1 and shs[0].taken == "tied":
-            p, sh = parts[0], shs[0]
-            results = [tied_lm(
-                p.x0, *p.args[:5], p.valid, sh.fvalid, model=model,
-                layout=layout, window_shape=window_shape,
-                global_slots=gslots, lo=sh.lo_np, hi=sh.hi_np,
-                max_iter=lm_max_iter, ftol=ftol, xtol=xtol,
-                constraint=constraint)]
-        else:
-            results = lm_solve_global_shards(
-                parts, gslots, max_iter=lm_max_iter, ftol=ftol, xtol=xtol)
+            pos_ats.append(pos_at)
+        results = lm_solve_global_shards(
+            parts, gslots, max_iter=lm_max_iter, ftol=ftol, xtol=xtol)
         return [(res._replace(npix=mask.sum(dim=1)), pos_at)
                 for res, mask, pos_at in zip(results, masks, pos_ats)]
+
+    rounds = dict(fused=fused_round, gathered=gathered_round,
+                  block=block_round, tied=tied_round,
+                  torch=global_round if use_global else torch_round)
+
+    @lru_cache(maxsize=None)
+    def route_on(device, shards=1):
+        """The route on ``device`` over ``shards`` shards, decided once: a
+        record of ``taken`` ('fused', 'gathered', 'block', 'tied' or
+        'torch'), ``tag`` (the dispatches' ``diagnostics`` backend:
+        ``cuda-fused``, ``cpu-torch-rigid``, ...), ``mode`` and ``sums``
+        (``pixel_lm``'s, where the gathered route runs on CUDA, else
+        None), ``span_args`` (``solver.kernel``'s) and ``solve(shs, vects,
+        needs)``, one refit round: (LMResult, gather-time positions) a
+        shard.  'auto' takes the bucket's kernel route (``kernel_route``)
+        on CUDA; 'kernel' forces it (its plain versions on CPU); 'torch',
+        a bucket with no kernel route and a tie across shards, whose sums
+        cross devices, take lm_solve (lm_solve_global_shards when
+        tied)."""
+        taken = route if route is not None and not (
+            use_global and shards > 1) and (lm_backend == "kernel" or (
+                lm_backend == "auto" and device.type == "cuda")) else "torch"
+        span_args = {"route": taken}
+        if taken == "gathered" and device.type == "cuda":
+            span_args.update(
+                mode=launch_mode(model, layout, constraint, window_shape,
+                                 device, streaming),
+                sums=sum_path(model, layout, constraint))
+        return types.SimpleNamespace(
+            taken=taken, tag=f"{device.type}-{taken}{kind}",
+            mode=span_args.get("mode"), sums=span_args.get("sums"),
+            span_args=span_args, solve=rounds[taken])
 
     def finish(sh, vect_best, rms_best, conv_best, iters):
         """The outputs of one shard, with ``compute_error``'s std."""
         device, params0, fvalid = sh.device, sh.params0, sh.fvalid
-        params = sh.params_of(vect_best)
+        params = (layout.vect_to_params(vect_best, params0)
+                  if constraint is None
+                  else fns_on(device).params_of(vect_best, params0))
         if not compute_error:
             return (params, rms_best, conv_best, iters,
                     torch.zeros((0,), device=device))
-        pos = sh.positions_of(vect_best)
+        fns = fns_on(device)
+        pos = positions_of(sh, vect_best)
         origin = origins_for(pos, window_shape, sh.frame_shape)
         pixels = gather(sh.frames, sh.frame_idx, origin, window_shape)
         mask = radius_mask(pos, origin, window_shape, radius, fvalid=fvalid)
-        r, J = sh.residual_jac(
+        r, J = fns.residual_jac(
             vect_best, params0, pixels, mask, origin, sh.norm, *sh.fv_extra
         )
         H = torch.einsum("bun,bvn->buv", J, J)
@@ -415,10 +508,10 @@ def _shard_solver(
         # (G = ∂pos/∂vect, per lane) gives per-coordinate position errors;
         # the other slots map directly.
         G = torch.func.vmap(torch.func.jacfwd(
-            lambda v: sh.positions_of(v[None])[0]))(vect_best)  # [B,n,D,Vc]
+            lambda v: positions_of(sh, v[None])[0]))(vect_best)  # [B,n,D,Vc]
         var_pos = torch.einsum("bndu,buv,bndv->bnd", G, cov, G) \
             * sigma2[:, None, None]
-        std_params = layout.vect_to_params(std_vect[:, sh.Qt:], nan_params)
+        std_params = layout.vect_to_params(std_vect[:, fns.Qt:], nan_params)
         p0 = pos_idx[0]
         std_params = torch.cat(
             [std_params[..., :p0], torch.sqrt(torch.clamp(var_pos, min=0.0)),
@@ -434,14 +527,8 @@ def _shard_solver(
         with diagnostics.stage("solver.setup", {
                 "n": n, "B": sum(a[2].shape[0] for a in shard_args)}):
             shs = [setup(*a) for a in shard_args]
-            # the route of every round; a tie across shards sums across
-            # devices, on lm_solve_global_shards
-            taken = ("torch" if use_global and len(shs) > 1
-                     else shs[0].taken)
-            kernel_args = {"route": taken}
-            if shs[0].mode is not None:
-                kernel_args["mode"] = shs[0].mode
-                kernel_args["sums"] = shs[0].sums
+            route = route_on(shs[0].device, len(shs))
+            kernel_args = route.span_args
             # Refit-on-shift: a lane whose positions moved more than
             # max_shift is re-gathered around its new positions and solved
             # again.  The next round starts from the latest iterate, but
@@ -462,14 +549,11 @@ def _shard_solver(
                 if it > 0 and not any(bool(nd.any()) for nd in need):
                     break
                 with diagnostics.stage("solver.kernel", kernel_args):
-                    if use_global:
-                        rounds = tied_round(shs, vect, need)
-                    else:
-                        rounds = [solve_round(sh, v, nd)
-                                  for sh, v, nd in zip(shs, vect, need)]
-                for s, (sh, (res, pos_at)) in enumerate(zip(shs, rounds)):
+                    rounds_out = route.solve(shs, vect, need)
+                for s, (sh, (res, pos_at)) in enumerate(zip(shs,
+                                                            rounds_out)):
                     shift = torch.amax(
-                        torch.abs(sh.positions_of(res.x) - pos_at),
+                        torch.abs(positions_of(sh, res.x) - pos_at),
                         dim=(1, 2)
                     )
                     npx_raw = res.npix
@@ -493,7 +577,7 @@ def _shard_solver(
             return [finish(*a) for a in zip(shs, vect_best, rms_best,
                                              conv_best, iters)]
 
-    return solve_shards, layout, use_global, route
+    return solve_shards, layout, use_global, route_on
 
 
 def _mesh_bucket_solver(mesh, model, ndim, isotropic, n, param_mode_key,
@@ -522,18 +606,16 @@ def _mesh_bucket_solver(mesh, model, ndim, isotropic, n, param_mode_key,
 
     Returns ``(call, layout, backend_tag)``: ``call`` takes and returns
     what the single-device solver does, its outputs joined in lane order
-    on the mesh's first device; the tag is the single-device one with
-    ``-sharded`` appended (``cuda-fused-sharded``, and for a tie over
-    several shards ``cuda-torch-global-sharded``, ...)."""
-    solve_shards, layout, use_global, route = _shard_solver(
+    on the mesh's first device; the tag is the route's on the first
+    device with ``-sharded`` appended (``cuda-fused-sharded``, and for a
+    tie over several shards ``cuda-torch-global-sharded``, ...)."""
+    solve_shards, layout, use_global, route_on = _shard_solver(
         model, ndim, isotropic, n, param_mode_key, window_shape, radius,
         bounds_key, constraint, residual_factor, max_iter, max_shift,
         lm_max_iter, ftol, xtol, compute_error, lm_backend, gather_backend,
         streaming)
     dev0 = mesh.devices[0]
-    tag_route = None if use_global and mesh.size > 1 else route
-    backend_tag = _backend_tag(lm_backend, tag_route, use_global,
-                               constraint, dev0) + "-sharded"
+    backend_tag = route_on(dev0, mesh.size).tag + "-sharded"
 
     def call(stack, fidx, params0, pose0, valid, fvalid=None):
         with diagnostics.stage("solver.setup", {
@@ -553,18 +635,6 @@ def _mesh_bucket_solver(mesh, model, ndim, isotropic, n, param_mode_key,
         return tuple(joined)
 
     return call, layout, backend_tag
-
-
-def _backend_tag(lm_backend, route, use_global, constraint, device):
-    """A dispatch's ``diagnostics`` tag: the device type, the route taken
-    (``fused``, ``gathered``, ``block``, ``tied``, ``torch``), ``-rigid``
-    / ``-penalty`` for a constrained bucket and ``-global`` for a tied
-    one (``cuda-tied-global``, ``cuda-tied-rigid-global``)."""
-    kind = "" if constraint is None else (
-        "-rigid" if constraint.kind == "rigid" else "-penalty")
-    kind += "-global" if use_global else ""
-    return (f"{device.type}-{_route_taken(lm_backend, route, device)}"
-            f"{kind}")
 
 
 def _global_distance(constraint) -> bool:
@@ -711,19 +781,6 @@ def _stack_frames(images, chunk, device):
     return torch.as_tensor(
         np.stack(vals, axis=0).astype(np.float32), device=device
     )
-
-
-def _resolve_device(device, who):
-    """``device``, or 'cuda' when it is None; raises ``RuntimeError`` where
-    no CUDA device exists and none was named."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{who}: no CUDA device is available; it runs on the GPU "
-                "unless device='cpu' is passed"
-            )
-        device = "cuda"
-    return torch.device(device)
 
 
 def _mesh_device(mesh, device, who):
@@ -1049,11 +1106,6 @@ def refine_leastsq(
             valid & ~np.isfinite(rms)
         ).any():
             _nan_trap_raise(p, rms, model, ndim)
-        con = p["con"]
-        ug = _uses_global(p["layout"], con)
-        tag = p["backend_tag"] or _backend_tag(
-            lm_backend, kernel_route(model, p["layout"], ug, con, p["wshape"]),
-            ug, con, device)
         diagnostics.record_batch(
             cluster_size=n,
             n_clusters=int(valid.sum()),
@@ -1065,7 +1117,7 @@ def refine_leastsq(
             max_lm_iters=int(iters[valid].max()) if valid.any() else 0,
             mean_rms=float(rms[valid].mean()) if valid.any() else 0.0,
             wall_s=p["dispatch_s"] + (time.perf_counter() - t_fetch),
-            backend=tag,
+            backend=p["backend_tag"],
             solve_s=(_clock_seconds(*p["solve_marks"])
                      if "solve_marks" in p else 0.0),
             launches=p.get("launches", {}),
@@ -1188,11 +1240,11 @@ def refine_leastsq(
             compute_error, lm_backend,
         )
         if mesh is None:
-            solver, layout = _bucket_solver(*bucket_args)
-            backend_tag = None
+            solver, _ = _bucket_solver(*bucket_args)
+            route_on = _shard_solver(*bucket_args)[3]
+            backend_tag = route_on(device).tag
         else:
-            solver, layout, backend_tag = _mesh_bucket_solver(
-                mesh, *bucket_args)
+            solver, _, backend_tag = _mesh_bucket_solver(mesh, *bucket_args)
         if con is not None and con.kind == "rigid":
             pose0 = positions_to_pose(params0[:, :, 2:2 + ndim], con)
         else:
@@ -1207,7 +1259,7 @@ def refine_leastsq(
         )
         return solver, args, dict(
             n=n, B=B, Bpad=Bpad, valid=valid, pos_mat=pos_mat,
-            layout=layout, wshape=wshape, con=con, backend_tag=backend_tag,
+            wshape=wshape, backend_tag=backend_tag,
             # non-finite trap context (diagnostics.debug_nans)
             params0=params0, cids=cid[starts], tvals=t_arr[starts],
         )

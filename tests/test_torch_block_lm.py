@@ -32,6 +32,7 @@ from clustertracking_tpu_torch.ops.block_lm import (
     check_block_lm_args, smem_words)
 from clustertracking_tpu_torch.ops.gather import (
     gather_stack, origins_for, radius_mask)
+from clustertracking_tpu_torch.ops.pixel_lm import SlotBounds
 from clustertracking_tpu_torch.refine import _slot_bounds, _window_shape
 
 torch.set_num_threads(1)
@@ -110,26 +111,25 @@ def _chain_scene(n, n_live, B, ndim=2, isotropic=True, modes=None,
     mask = radius_mask(pos_at, origin, window, radius, fvalid=t(fvalid))
     norm = torch.clamp(torch.amax(params_t[..., lay.signal_param_idx].abs(),
                                   dim=1), min=1e-6)
-    lo, hi = _slot_bounds(lay, window, shape)
+    bounds = _slot_bounds(lay, window, shape)
     inputs = dict(vect0=lay.vect_from_params(params_t).numpy(),
                   const_params=params, pixels=pixels.numpy(),
                   mask=mask.numpy(), origin=origin.numpy(),
-                  norm=norm.numpy(), valid=valid, fvalid=fvalid, lo=lo,
-                  hi=hi)
+                  norm=norm.numpy(), valid=valid, fvalid=fvalid,
+                  lo=bounds.lo.numpy(), hi=bounds.hi.numpy())
     return lay, window, inputs
 
 
-def _torch_args(inputs, device="cpu"):
+def _torch_args(lay, inputs, device="cpu"):
     keys = ("vect0", "const_params", "pixels", "mask", "origin", "norm",
             "valid", "fvalid")
     args = [torch.as_tensor(inputs[k]).to(device) for k in keys]
-    bounds = dict(lo=torch.as_tensor(inputs["lo"]).to(device),
-                  hi=torch.as_tensor(inputs["hi"]).to(device))
-    return args, bounds
+    return args, dict(bounds=SlotBounds(lay, None, inputs["lo"],
+                                        inputs["hi"], device))
 
 
 def _plain(lay, window, inputs, model="gauss"):
-    args, bounds = _torch_args(inputs)
+    args, bounds = _torch_args(lay, inputs)
     return block_lm_reference(*args, model=get_model(model), layout=lay,
                               window_shape=window, max_iter=MAX_IT,
                               **bounds)
@@ -208,7 +208,7 @@ def test_reference_matches_jax_lm_solve(case):
 
 def test_wrapper_on_cpu_returns_the_plain_version():
     lay, window, inputs = _chain_scene(8, 7, 2)
-    args, bounds = _torch_args(inputs)
+    args, bounds = _torch_args(lay, inputs)
     kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
               max_iter=8, **bounds)
     before = block_lm.launches
@@ -219,7 +219,7 @@ def test_wrapper_on_cpu_returns_the_plain_version():
 
 def test_wrapper_refuses_other_devices():
     lay, window, inputs = _chain_scene(8, 8, 2)
-    args, bounds = _torch_args(inputs, "meta")
+    args, bounds = _torch_args(lay, inputs, "meta")
     with pytest.raises(ValueError, match="device"):
         block_lm(*args, model=get_model("gauss"), layout=lay,
                  window_shape=window, **bounds)
@@ -227,17 +227,19 @@ def test_wrapper_refuses_other_devices():
 
 def _checked(which, bad):
     lay, window, inputs = _chain_scene(8, 8, 2)
-    args, bounds = _torch_args(inputs)
+    args, bounds = _torch_args(lay, inputs)
     names = ("vect0", "const_params", "pixels", "mask", "origin", "norm",
              "valid", "fvalid")
-    kw = dict(model=get_model("gauss"), layout=lay, window_shape=window)
+    kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
+              **bounds)
     if which in names:
         args[names.index(which)] = bad(args[names.index(which)])
-    elif which in bounds:
-        bounds[which] = bad(bounds[which])
+    elif which == "lo":
+        kw["bounds"] = SlotBounds(lay, None, bad(kw["bounds"].lo),
+                                  kw["bounds"].hi)
     else:
         kw[which] = bad(kw[which])
-    check_block_lm_args(*args, bounds["lo"], bounds["hi"], **kw)
+    check_block_lm_args(*args, **kw)
 
 
 def test_check_block_lm_args_accepts_a_chain_bucket():
@@ -388,7 +390,7 @@ def test_kernel_matches_plain_on_the_card(case, model, extra_modes):
     lay, window, inputs = _chain_scene(n, live, 8, ndim, iso,
                                        dict(modes or {}, **extra_modes),
                                        model=model)
-    args, bounds = _torch_args(inputs, "cuda")
+    args, bounds = _torch_args(lay, inputs, "cuda")
     kw = dict(model=get_model(model), layout=lay, window_shape=window,
               max_iter=MAX_IT, **bounds)
     before = block_lm.launches
@@ -421,7 +423,7 @@ def test_kernel_matches_plain_at_tile_edges_on_the_card(case):
     n, live, ndim, iso, modes = TILE_EDGES[case]
     lay, window, inputs = _chain_scene(n, live, 6, ndim, iso, modes, seed=4)
     assert lay.n_slots == int(case[1:].split("_")[0])
-    args, bounds = _torch_args(inputs, "cuda")
+    args, bounds = _torch_args(lay, inputs, "cuda")
     kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
               max_iter=MAX_IT, **bounds)
     res_k = block_lm(*args, **kw)
@@ -435,7 +437,7 @@ def test_kernel_matches_plain_at_the_cap_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lay, window, inputs = _chain_scene(40, 38, 4, seed=2)
-    args, bounds = _torch_args(inputs, "cuda")
+    args, bounds = _torch_args(lay, inputs, "cuda")
     kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
               max_iter=MAX_IT, **bounds)
     res_k = block_lm(*args, **kw)

@@ -313,8 +313,9 @@ def test_rigid_var_sizes_bounded_at_their_own_slots():
     layout = build_layout(get_model("gauss"), 2, True, 2, {"size": "var"})
     window = _window_shape(2, 2, (4.5, 4.5), (5.5, 5.5), (64, 64))
     assert window == (18, 18)
-    lo, hi = _slot_bounds(layout, window, (64, 64),
+    bounds = _slot_bounds(layout, window, (64, 64),
                           constraint=pc.dimer(5.0, 2))
+    lo, hi = bounds.lo.numpy(), bounds.hi.numpy()
     Qt = 3
     size_slots = [int(s) for s in
                   layout.slot_idx[:, layout.param_names.index("size")]]

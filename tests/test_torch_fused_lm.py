@@ -21,10 +21,9 @@ from clustertracking_tpu_torch import artificial
 from clustertracking_tpu_torch.entry import example_batch
 from clustertracking_tpu_torch.models import build_layout, get_model
 from clustertracking_tpu_torch.ops.fused_lm import (
-    check_kernel_args, fused_lm_2d, fused_lm_2d_reference, kernel_mask,
-    kernel_route)
+    check_kernel_args, fused_lm_2d, fused_lm_2d_reference, kernel_mask)
 from clustertracking_tpu_torch.ops.gather import origins_for, radius_mask
-from clustertracking_tpu_torch.refine import _slot_bounds
+from clustertracking_tpu_torch.refine import _slot_bounds, kernel_route
 
 torch.set_num_threads(1)
 
@@ -60,8 +59,8 @@ def _scene(n, modes, B=4, seed=0):
     pos0 = params0[..., 2:4].copy()
     origin = origins_for(_t(pos0), WINDOW, frames.shape[1:]).numpy()
     norm = params0[..., 1].max(axis=1)
-    lo, hi = _slot_bounds(lay, WINDOW, frames.shape[1:])
-    return lay, frames, fidx, params0, pos0, origin, norm, lo, hi
+    bounds = _slot_bounds(lay, WINDOW, frames.shape[1:])
+    return lay, frames, fidx, params0, pos0, origin, norm, bounds
 
 
 def _run_both(n, modes, valid):
@@ -71,11 +70,12 @@ def _run_both(n, modes, valid):
     from clustertracking_tpu.models import get_model as jax_get_model
     from clustertracking_tpu.ops.pallas_lm import make_pallas_lm
 
-    lay, frames, fidx, params0, pos0, origin, norm, lo, hi = _scene(n, modes)
+    lay, frames, fidx, params0, pos0, origin, norm, bounds = _scene(n, modes)
     jlay = jax_build_layout(jax_get_model("gauss"), 2, True, n, modes)
     vect0 = jlay.vect_from_params(jnp.asarray(params0))
     psolve = make_pallas_lm(
-        jax_get_model("gauss"), jlay, WINDOW, lo, hi, RADIUS,
+        jax_get_model("gauss"), jlay, WINDOW, bounds.lo.numpy(),
+        bounds.hi.numpy(), RADIUS,
         max_iter=MAX_IT, interpret=True, fused_gather=True,
         frame_shape=frames.shape[1:],
     )
@@ -86,7 +86,7 @@ def _run_both(n, modes, valid):
     args = (lay.vect_from_params(_t(params0)), _t(params0), _t(frames),
             _t(fidx), _t(pos0), _t(origin), _t(norm), _t(valid), None)
     kw = dict(model=get_model("gauss"), layout=lay, window_shape=WINDOW,
-              lo=lo, hi=hi, radius=RADIUS, max_iter=MAX_IT)
+              bounds=bounds, radius=RADIUS, max_iter=MAX_IT)
     return lay, fused_lm_2d_reference(*args, **kw), jres, args, kw
 
 
@@ -131,11 +131,12 @@ def test_wrapper_on_cpu_returns_the_plain_version():
 
 
 def _kernel_args(B=4, n=2):
-    lay, frames, fidx, params0, pos0, origin, norm, lo, hi = _scene(n, {})
+    lay, frames, fidx, params0, pos0, origin, norm, bounds = _scene(n, {})
     args = [lay.vect_from_params(_t(params0)), _t(params0), _t(frames),
             _t(fidx), _t(pos0), _t(origin), _t(norm),
             torch.ones(B, dtype=torch.bool), torch.ones(B, n)]
-    kw = dict(model=get_model("gauss"), layout=lay, window_shape=WINDOW)
+    kw = dict(model=get_model("gauss"), layout=lay, window_shape=WINDOW,
+              bounds=bounds)
     return args, kw
 
 
@@ -187,8 +188,7 @@ def test_wrapper_refuses_other_devices():
     args, kw = _kernel_args()
     args = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="device"):
-        fused_lm_2d(*args, **kw, lo=np.zeros(6), hi=np.ones(6),
-                    radius=RADIUS)
+        fused_lm_2d(*args, **kw, radius=RADIUS)
 
 
 @pytest.mark.parametrize("n,modes,use_global,window,expect", [
@@ -293,7 +293,7 @@ def edge_case_inputs(case, B=4, seed=3):
     frames += rng.normal(0.0, 1.0, frames.shape).astype(np.float32)
     pos0 = params0[..., 2:4].copy()
     origin = origins_for(_t(pos0), window, frames.shape[1:])
-    lo, hi = _slot_bounds(lay, window, frames.shape[1:])
+    bounds = _slot_bounds(lay, window, frames.shape[1:])
     fvalid = torch.ones(B, n)
     fvalid[:, -1] = fv_last
     args = (lay.vect_from_params(_t(params0)), _t(params0), _t(frames),
@@ -301,7 +301,7 @@ def edge_case_inputs(case, B=4, seed=3):
             _t(params0[..., 1].max(axis=1)), torch.ones(B, dtype=torch.bool),
             fvalid)
     kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
-              lo=lo, hi=hi, radius=(radius, radius), max_iter=MAX_IT)
+              bounds=bounds, radius=(radius, radius), max_iter=MAX_IT)
     return lay, args, kw
 
 
@@ -327,8 +327,9 @@ def jax_lm_on_window(lay, args, kw):
         fns.residual, fns.residual_jac, jnp.asarray(vect0.numpy()),
         tuple(jnp.asarray(a.numpy()) for a in (
             params0, pixels, mask, origin, norm, fvalid)),
-        max_iter=kw["max_iter"], lower=jnp.asarray(kw["lo"]),
-        upper=jnp.asarray(kw["hi"]), valid=jnp.asarray(valid.numpy()))
+        max_iter=kw["max_iter"], lower=jnp.asarray(kw["bounds"].lo.numpy()),
+        upper=jnp.asarray(kw["bounds"].hi.numpy()),
+        valid=jnp.asarray(valid.numpy()))
 
 
 def assert_edge_results_close(case, lay, res, ref, atol, rtol):
@@ -376,7 +377,7 @@ def test_kernel_matches_plain_at_the_design_edges_on_the_card(case):
         pytest.skip("needs a CUDA device")
     lay, args, kw = edge_case_inputs(case, B=64)
     args = [a.to("cuda") for a in args]
-    kw["max_iter"] = 60
+    kw.update(max_iter=60, bounds=kw["bounds"].to("cuda"))
     before = fused_lm_2d.launches
     res_k = fused_lm_2d(*args, **kw)
     res_p = fused_lm_2d_reference(*args, **kw)
@@ -403,12 +404,12 @@ def test_kernel_matches_plain_on_the_card(window):
     p0 = _t(params0).to(dev)
     pos = p0[..., 2:4].contiguous()
     origin = origins_for(pos, window, (128, 128))
-    lo, hi = _slot_bounds(lay, window, (128, 128))
+    bounds = _slot_bounds(lay, window, (128, 128), device=dev)
     args = (lay.vect_from_params(p0), p0, _t(frames).to(dev),
             _t(fidx).to(dev), pos, origin, p0[..., 1].amax(dim=1),
             _t(valid).to(dev), None)
     kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
-              lo=lo, hi=hi, radius=(4.5, 4.5), max_iter=60)
+              bounds=bounds, radius=(4.5, 4.5), max_iter=60)
     before = fused_lm_2d.launches
     res_k = fused_lm_2d(*args, **kw)
     res_p = fused_lm_2d_reference(*args, **kw)

@@ -40,7 +40,7 @@ import clustertracking_tpu_torch as ctt
 from clustertracking_tpu_torch import artificial, diagnostics
 from clustertracking_tpu_torch.interop import constraint_from_reference
 from clustertracking_tpu_torch.models import build_layout, get_model
-from clustertracking_tpu_torch.ops.fused_lm import kernel_route
+from clustertracking_tpu_torch.refine import kernel_route
 from clustertracking_tpu_torch.ops.lm import lm_solve_global
 
 # the port's entry points run on CUDA unless asked for the CPU

@@ -25,13 +25,12 @@ from clustertracking_tpu_torch import artificial
 from clustertracking_tpu_torch.entry import (
     MODES_3D, RADIUS_3D, WINDOW_3D, example_batch_3d)
 from clustertracking_tpu_torch.models import build_layout, get_model
-from clustertracking_tpu_torch.ops.fused_lm import (
-    fused_lm_2d_reference, kernel_route)
+from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d_reference
 from clustertracking_tpu_torch.ops.gather import gather_stack, origins_for
 from clustertracking_tpu_torch.ops.pixel_lm import (
     check_pixel_lm_args, launch_mode, occupancy, pick_streaming, pixel_lm,
     pixel_lm_reference, smem_words, sum_path)
-from clustertracking_tpu_torch.refine import _slot_bounds
+from clustertracking_tpu_torch.refine import _slot_bounds, kernel_route
 
 torch.set_num_threads(1)
 
@@ -78,12 +77,12 @@ def _inputs(lay, frames, fidx, params0, window, radius, valid):
     pos = params0[..., list(lay.pos_param_idx)].copy()
     origin = origins_for(_t(pos), window, frames.shape[1:])
     pixels = gather_stack(_t(frames), _t(fidx), origin, window)
-    lo, hi = _slot_bounds(lay, window, frames.shape[1:])
+    bounds = _slot_bounds(lay, window, frames.shape[1:])
     args = (lay.vect_from_params(_t(params0)), _t(params0), pixels,
             _t(pos), origin, _t(params0[..., 1].max(axis=1)), _t(valid),
             None)
     kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
-              lo=lo, hi=hi, radius=radius, max_iter=MAX_IT)
+              bounds=bounds, radius=radius, max_iter=MAX_IT)
     return args, kw
 
 
@@ -98,7 +97,8 @@ def _pallas_solve(lay, args, kw, **make_kw):
                             lay.n_features, dict(zip(lay.param_names,
                                                      lay.modes)))
     solve = make_pallas_lm(
-        jax_get_model("gauss"), jlay, kw["window_shape"], kw["lo"], kw["hi"],
+        jax_get_model("gauss"), jlay, kw["window_shape"],
+        kw["bounds"].lo.numpy(), kw["bounds"].hi.numpy(),
         kw["radius"], max_iter=MAX_IT, interpret=True, fused_gather=False,
         **make_kw)
     return solve(*[jnp.asarray(a.numpy()) for a in args[:7]])
@@ -199,7 +199,8 @@ def _checked_args():
     args, kw = _inputs(lay, frames, fidx, params0, window, radius,
                        np.ones(4, bool))
     args = list(args[:7]) + [torch.ones(4, 2)]
-    return args, dict(model=kw["model"], layout=lay, window_shape=window)
+    return args, dict(model=kw["model"], layout=lay, window_shape=window,
+                      bounds=kw["bounds"])
 
 
 def test_check_pixel_lm_args_accepts_config_4():
@@ -278,7 +279,7 @@ def test_kernel_matches_plain_on_the_card(streaming):
     args, kw = _inputs(lay, frames, fidx, params0, WINDOW_3D, RADIUS_3D,
                        valid)
     args = [a.to("cuda") if a is not None else None for a in args]
-    kw["max_iter"] = 60
+    kw.update(max_iter=60, bounds=kw["bounds"].to("cuda"))
     before = pixel_lm.launches_streamed
     res_k = pixel_lm(*args, **kw, streaming=streaming)
     res_p = pixel_lm_reference(*args, **kw)
@@ -380,8 +381,9 @@ def test_reference_matches_jax_at_the_design_edges_3d(case):
         fns.residual, fns.residual_jac, jnp.asarray(vect0.numpy()),
         tuple(jnp.asarray(a.numpy()) for a in (params0, pixels, mask,
                                                origin, norm)),
-        max_iter=EDGE_IT, lower=jnp.asarray(kw["lo"]),
-        upper=jnp.asarray(kw["hi"]), valid=jnp.asarray(valid.numpy()))
+        max_iter=EDGE_IT, lower=jnp.asarray(kw["bounds"].lo.numpy()),
+        upper=jnp.asarray(kw["bounds"].hi.numpy()),
+        valid=jnp.asarray(valid.numpy()))
     sig = [int(s) for s in lay.slot_idx[:, 1]]
     bg = [int(lay.slot_idx[0, 0])] if lay.slot_idx[0, 0] >= 0 else []
     other = [s for s in range(lay.n_slots) if s not in sig + bg]
@@ -408,7 +410,7 @@ def test_kernel_matches_plain_at_the_design_edges_3d_on_the_card(
         pytest.skip("needs a CUDA device")
     lay, args, kw = _edge_inputs_3d(case, B=64, shape=(32, 96, 96))
     args = [a.to("cuda") if a is not None else None for a in args]
-    kw["max_iter"] = 60
+    kw.update(max_iter=60, bounds=kw["bounds"].to("cuda"))
     res_k = pixel_lm(*args, **kw, streaming=streaming)
     res_p = pixel_lm_reference(*args, **kw)
     res_o = pixel_lm(*args, **kw, streaming=not streaming)
@@ -441,7 +443,7 @@ def test_kernel_matches_plain_at_the_design_edges_2d_on_the_card(
     pixels = gather_stack(frames, fidx, origin, kw["window_shape"])
     args = [a.to("cuda") for a in (vect0, params0, pixels, pos0, origin,
                                    norm, valid, fvalid)]
-    kw["max_iter"] = 60
+    kw.update(max_iter=60, bounds=kw["bounds"].to("cuda"))
     res_k = pixel_lm(*args, **kw, streaming=streaming)
     res_p = pixel_lm_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -529,7 +531,7 @@ def test_sums_match_plain_in_both_modes_on_the_card(case):
         pytest.skip("needs a CUDA device")
     lay, args, kw = _sum_case_inputs(case, B=64)
     args = [a.to("cuda") if a is not None else None for a in args]
-    kw["max_iter"] = 60
+    kw.update(max_iter=60, bounds=kw["bounds"].to("cuda"))
     mma = SUM_CASES[case][2] == "f64_mma"
     before = pixel_lm.launches_mma
     res_r = pixel_lm(*args, **kw, streaming=False)

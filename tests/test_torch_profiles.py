@@ -28,11 +28,11 @@ import torch
 from clustertracking_tpu_torch import artificial
 from clustertracking_tpu_torch.models import build_layout, get_model
 from clustertracking_tpu_torch.ops.fused_lm import (
-    fused_lm_2d, fused_lm_2d_reference, kernel_route)
+    fused_lm_2d, fused_lm_2d_reference)
 from clustertracking_tpu_torch.ops.gather import gather_stack, origins_for
 from clustertracking_tpu_torch.ops.pixel_lm import (
     check_pixel_lm_args, pixel_lm, pixel_lm_reference, profile_tag)
-from clustertracking_tpu_torch.refine import _slot_bounds
+from clustertracking_tpu_torch.refine import _slot_bounds, kernel_route
 
 torch.set_num_threads(1)
 
@@ -87,13 +87,13 @@ def _args(model, lay, frames, fidx, params0, window, radius, valid,
           gathered):
     pos = params0[..., list(lay.pos_param_idx)].copy()
     origin = origins_for(_t(pos), window, frames.shape[1:])
-    lo, hi = _slot_bounds(lay, window, frames.shape[1:])
+    bounds = _slot_bounds(lay, window, frames.shape[1:])
     src = (gather_stack(_t(frames), _t(fidx), origin, window) if gathered
            else (_t(frames), _t(fidx)))
     src = src if isinstance(src, tuple) else (src,)
     args = (lay.vect_from_params(_t(params0)), _t(params0), *src, _t(pos),
             origin, _t(params0[..., 1].max(axis=1)), _t(valid), None)
-    kw = dict(model=model, layout=lay, window_shape=window, lo=lo, hi=hi,
+    kw = dict(model=model, layout=lay, window_shape=window, bounds=bounds,
               radius=radius, max_iter=MAX_IT)
     return args, kw
 
@@ -109,7 +109,8 @@ def _pallas(name, lay, args, kw, fused, frame_shape):
     jlay = jax_build_layout(jmodel, lay.ndim, lay.isotropic, lay.n_features,
                             dict(zip(lay.param_names, lay.modes)))
     solve = make_pallas_lm(
-        jmodel, jlay, kw["window_shape"], kw["lo"], kw["hi"], kw["radius"],
+        jmodel, jlay, kw["window_shape"], kw["bounds"].lo.numpy(),
+        kw["bounds"].hi.numpy(), kw["radius"],
         max_iter=MAX_IT, interpret=True, fused_gather=fused,
         frame_shape=frame_shape)
     n_in = 8 if fused else 7
@@ -240,14 +241,15 @@ def test_check_args_refuses_custom_models():
     args, kw = _args(model, lay, frames, fidx, params0, window, radius,
                      np.ones(4, bool), gathered=True)
     args = list(args[:7]) + [torch.ones(4, 2)]
-    check_pixel_lm_args(*args, model=model, layout=lay, window_shape=window)
+    check_pixel_lm_args(*args, model=model, layout=lay, window_shape=window,
+                        bounds=kw["bounds"])
     custom = _custom()
     clay = build_layout(custom, 2, True, 2, {})
     args[0] = clay.vect_from_params(args[1][..., :clay.n_params])
     args[1] = args[1][..., :clay.n_params].contiguous()
     with pytest.raises(NotImplementedError, match="queue 2 item 1"):
         check_pixel_lm_args(*args, model=custom, layout=clay,
-                            window_shape=window)
+                            window_shape=window, bounds=kw["bounds"])
 
 
 def _agree(res_k, res_p, lay):
@@ -279,7 +281,7 @@ def test_kernel_matches_plain_on_the_card(name, route):
     args, kw = _args(model, lay, frames, fidx, params0, window, radius,
                      np.ones(64, bool), gathered=route != "fused")
     args = [a.to("cuda") if a is not None else None for a in args]
-    kw["max_iter"] = 60
+    kw.update(max_iter=60, bounds=kw["bounds"].to("cuda"))
     if route == "fused":
         before = fused_lm_2d.launches
         res_k = fused_lm_2d(*args, **kw)

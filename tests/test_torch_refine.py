@@ -420,3 +420,78 @@ def test_nan_trap_names_the_offending_cluster():
             refine_cpu(f, img, **kw)
     out = refine_cpu(f, img, **kw)  # trap off: rejected silently
     assert out["cost"].isna().all()
+
+
+def _setup_case(case):
+    """(solver configuration after the model, the solve's arguments,
+    closures its first call builds) of a ``test_setup_builds_...`` case."""
+    from clustertracking_tpu_torch.entry import (
+        _rigid_configs, example_batch_rigid)
+    from clustertracking_tpu_torch.interop import from_reference
+
+    con, fvalid, closures = None, None, {"model": 0, "constrained": 0}
+    if case == "fused_rigid":
+        c = _rigid_configs()["3-dimer"]
+        batch = example_batch_rigid("3-dimer", B=8)
+        conf = (2, True, 2, (), c["window"], c["radius"])
+        con, closures = c["con"], {"model": 0, "constrained": 1}
+    elif case == "gathered":
+        batch = example_batch_3d(B=8, shape=(32, 48, 48))
+        conf = (3, False, 2, MODES_3D, WINDOW_3D, RADIUS_3D)
+    else:
+        batch = example_batch(B=8, frame_size=64)
+        modes = (("size", "global"),) if case == "tied" else ()
+        conf = (2, True, 2, modes, (13, 13), (4.5, 4.5))
+    st = from_reference(*batch[:5], device="cpu")
+    params0 = st.params0
+    if case == "block":
+        # seven features (V = 21): the dimer and five inert copies of its
+        # first feature, as refine_leastsq pads a cluster
+        pad = params0[:, :1].repeat(1, 5, 1)
+        pad[..., 1] = 0.0
+        params0 = torch.cat([params0, pad], dim=1)
+        fvalid = torch.ones(8, 7)
+        fvalid[:, 2:] = 0.0
+        conf = (2, True, 7, (), (13, 13), (4.5, 4.5))
+    args = (st.frames, st.frame_idx, params0, st.pose0, st.valid, fvalid)
+    return conf + ((), con), args, closures
+
+
+@pytest.mark.parametrize("case", ["fused", "gathered", "fused_rigid",
+                                  "block", "tied"])
+def test_setup_builds_its_constants_once(monkeypatch, case):
+    """``lm_backend='kernel'`` on the fused, gathered, block and tied
+    routes (their plain versions on the CPU): the first call of a
+    configuration on a frame shape builds its bounds once and no model
+    closures (a rigid bucket: its constrained closures, for the pose); a
+    second call builds neither, and a new frame shape builds its bounds
+    once more."""
+    from clustertracking_tpu_torch import refine as refine_mod
+
+    built = {"bounds": 0, "model": 0, "constrained": 0}
+
+    def counted(key, real):
+        def call(*a, **k):
+            built[key] += 1
+            return real(*a, **k)
+        return call
+
+    for key, name in (("bounds", "_slot_bounds"), ("model", "make_model_fns"),
+                      ("constrained", "make_constrained_fns")):
+        monkeypatch.setattr(refine_mod, name,
+                            counted(key, getattr(refine_mod, name)))
+    conf, args, closures = _setup_case(case)
+    # ftol 1.25e-8: a configuration no other test builds
+    solve, _ = _bucket_solver(get_model("gauss"), *conf, 1e5, 2, 1.0, 4,
+                              1.25e-8, 1.49e-8, False, "kernel")
+    assert refine_mod._shard_solver(
+        get_model("gauss"), *conf, 1e5, 2, 1.0, 4, 1.25e-8, 1.49e-8, False,
+        "kernel")[3](torch.device("cpu")).taken == case.split("_")[0]
+    first = solve(*args)
+    assert built == dict(closures, bounds=1)
+    again = solve(*args)
+    assert built == dict(closures, bounds=1)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    solve(torch.cat([args[0], args[0]], dim=-1).contiguous(), *args[1:])
+    assert built == dict(closures, bounds=2)

@@ -36,12 +36,13 @@ from clustertracking_tpu_torch.entry import (
     RIGID_CONFIGS, entry_rigid, example_batch_rigid)
 from clustertracking_tpu_torch.models import build_layout, get_model
 from clustertracking_tpu_torch.ops.fused_lm import (
-    fused_lm_2d, fused_lm_2d_reference, kernel_route)
+    fused_lm_2d, fused_lm_2d_reference)
 from clustertracking_tpu_torch.ops.gather import gather_stack, origins_for
 from clustertracking_tpu_torch.ops.pixel_lm import (
     pixel_lm, pixel_lm_reference)
 from clustertracking_tpu_torch.ops.rigid import rigid_kernel_slots
-from clustertracking_tpu_torch.refine import _bucket_solver, _slot_bounds
+from clustertracking_tpu_torch.refine import (
+    _bucket_solver, _slot_bounds, kernel_route)
 
 torch.set_num_threads(1)
 
@@ -110,13 +111,13 @@ def _args(con, lay, frames, fidx, params0, pose0, window, radius, valid,
     vect0 = torch.cat([_t(pose0), lay.vect_from_params(_t(params0))], dim=1)
     pos = pose_to_positions(_t(pose0), con).contiguous()
     origin = origins_for(pos, window, frames.shape[1:])
-    lo, hi = _slot_bounds(lay, window, frames.shape[1:], constraint=con)
+    bounds = _slot_bounds(lay, window, frames.shape[1:], constraint=con)
     src = ((gather_stack(_t(frames), _t(fidx), origin, window),) if gathered
            else (_t(frames), _t(fidx)))
     args = (vect0, _t(params0), *src, pos, origin,
             _t(params0[..., 1].max(axis=1)), _t(valid), None)
     kw = dict(model=get_model("gauss"), layout=lay, window_shape=window,
-              lo=lo, hi=hi, radius=radius, max_iter=MAX_IT, constraint=con)
+              bounds=bounds, radius=radius, max_iter=MAX_IT, constraint=con)
     return args, kw
 
 
@@ -144,10 +145,10 @@ def _pallas(lay, args, kw, fused, frame_shape):
                             lay.n_features,
                             dict(zip(lay.param_names, lay.modes)))
     solve = make_pallas_lm(
-        jax_get_model("gauss"), jlay, kw["window_shape"], kw["lo"],
-        kw["hi"], kw["radius"], max_iter=MAX_IT, interpret=True,
-        fused_gather=fused, frame_shape=frame_shape,
-        constraint=_jax_constraint(kw["constraint"]))
+        jax_get_model("gauss"), jlay, kw["window_shape"],
+        kw["bounds"].lo.numpy(), kw["bounds"].hi.numpy(), kw["radius"],
+        max_iter=MAX_IT, interpret=True, fused_gather=fused,
+        frame_shape=frame_shape, constraint=_jax_constraint(kw["constraint"]))
     assert solve.fused_gather == fused
     n_in = 8 if fused else 7
     return solve(*[jnp.asarray(a.numpy()) for a in args[:n_in]])
@@ -328,7 +329,7 @@ def test_kernel_matches_plain_on_the_card(kind, route):
     args, kw = _args(con, lay, frames, fidx, params0, pose0, window, radius,
                      valid, gathered=route != "fused")
     args = [a.to("cuda") if a is not None else None for a in args]
-    kw["max_iter"] = 60
+    kw.update(max_iter=60, bounds=kw["bounds"].to("cuda"))
     if route == "fused":
         before = fused_lm_2d.launches
         res_k = fused_lm_2d(*args, **kw)

@@ -287,6 +287,39 @@ def test_batch_record_counts_the_dispatch_launches(monkeypatch):
     assert stats.summary()["launches"] == {"fused_lm_2d": len(calls)}
 
 
+def _bond(pos):
+    return torch.stack([((pos[0] - pos[1]) ** 2).sum() - 25.0])
+
+
+@pytest.mark.parametrize("kw,tags", [
+    (dict(lm_backend="kernel", constraints=ctt.dimer(5.0, 2)),
+     {"cpu-fused", "cpu-fused-rigid"}),
+    (dict(lm_backend="torch", constraints=[
+        {"type": "eq", "fun": _bond, "cluster_size": 2}]),
+     {"cpu-torch", "cpu-torch-penalty"}),
+    (dict(lm_backend="kernel", shards=2), {"cpu-fused-sharded"}),
+    (dict(lm_backend="auto", shards=2), {"cpu-torch-sharded"}),
+    (dict(lm_backend="kernel", shards=1, param_mode={"size": "global"},
+          param_val={"size": 2.5}), {"cpu-tied-global-sharded"}),
+    (dict(lm_backend="kernel", shards=2, param_mode={"size": "global"},
+          param_val={"size": 2.5}), {"cpu-torch-global-sharded"}),
+], ids=["rigid", "penalty", "mesh_kernel", "mesh_auto", "mesh1_tied",
+        "mesh2_tied"])
+def test_batch_record_tags_each_route(kw, tags):
+    """A dispatch's ``backend`` names the route its bucket took on its
+    device: the kind of a constrained bucket, ``-sharded`` over a mesh,
+    and over several shards a tie's plain route (its sums cross
+    devices), also where ``lm_backend='kernel'`` asks for the kernels."""
+    kw = dict(kw)
+    shards = kw.pop("shards", None)
+    if shards:
+        kw["mesh"] = make_mesh(["cpu"] * shards)
+    img, f = _dimer_frame()
+    with diagnostics.collect() as stats:
+        ctt.refine_leastsq(f, img, **KW, **kw)
+    assert {b.backend for b in stats.batches} == tags
+
+
 def test_no_solve_clock_without_a_collector(monkeypatch):
     """With no collector active a dispatch reads no counters and sets no
     clock marks."""

@@ -31,7 +31,6 @@ from clustertracking_tpu_torch import diagnostics
 from clustertracking_tpu_torch.constraints import (
     Constraint, dimer_global, positions_to_pose)
 from clustertracking_tpu_torch.models import build_layout, get_model
-from clustertracking_tpu_torch.ops.fused_lm import kernel_route
 from clustertracking_tpu_torch.ops.gather import (
     gather_stack, origins_for, radius_mask)
 from clustertracking_tpu_torch.ops.residual import make_model_fns
@@ -39,10 +38,10 @@ from clustertracking_tpu_torch.ops.rigid import (
     make_constrained_fns, rigid_kernel_slots)
 from clustertracking_tpu_torch.ops.pixel_lm import pose_kind, profile_tag
 from clustertracking_tpu_torch.ops.tied_lm import (
-    CTA_WARPS, SMEM_MAX, check_tied_lm_args, launch_plan, pack_tied,
-    slot_ceiling, tie_supported, tied_lm, tied_lm_clocks, tied_lm_reference)
+    CTA_WARPS, SMEM_MAX, check_tied_lm_args, launch_plan, slot_ceiling,
+    tie_supported, tied_lm, tied_lm_clocks, tied_lm_reference)
 from clustertracking_tpu_torch.refine import (
-    _slot_bounds, _tied_slots, _uses_global, _window_shape)
+    _slot_bounds, _tied_slots, _uses_global, _window_shape, kernel_route)
 
 torch.set_num_threads(1)
 
@@ -143,13 +142,13 @@ def _bucket(name, B=6, seed=0):
     mask = radius_mask(pos_at, origin, window, radius, fvalid=fv)
     norm = torch.clamp(torch.amax(params_t[..., lay.signal_param_idx].abs(),
                                   dim=1), min=1e-6)
-    lo, hi = _slot_bounds(lay, window, shape, (), con)
+    bounds = _slot_bounds(lay, window, shape, (), con)
     inputs = dict(vect0=vect0.numpy(), const_params=params,
                   pixels=pixels.numpy(), mask=mask.numpy(),
                   origin=origin.numpy(), norm=norm.numpy(), valid=valid,
                   fvalid=None if con is not None else fvalid)
     kw = dict(model=model, layout=lay, window_shape=window,
-              global_slots=_tied_slots(lay, con), lo=lo, hi=hi,
+              global_slots=_tied_slots(lay, con), bounds=bounds,
               max_iter=MAX_IT, constraint=con)
     return inputs, kw
 
@@ -161,6 +160,11 @@ _ARGS = ("vect0", "const_params", "pixels", "mask", "origin", "norm",
 def _args(inputs, device="cpu"):
     return [None if inputs[k] is None else torch.as_tensor(inputs[k]).to(
         device) for k in _ARGS]
+
+
+def _card(kw):
+    """A bucket's keywords with its bounds on the card."""
+    return dict(kw, bounds=kw["bounds"].to("cuda"))
 
 
 def _jax_solve(inputs, kw, max_iter=MAX_IT):
@@ -224,8 +228,8 @@ def _jax_solve(inputs, kw, max_iter=MAX_IT):
                 a["norm"])
     res = lm_solve_global(
         residual, residual_jac, a["vect0"], tuple(kw["global_slots"]),
-        args, max_iter=max_iter, lower=jnp.asarray(kw["lo"]),
-        upper=jnp.asarray(kw["hi"]), valid=a["valid"])
+        args, max_iter=max_iter, lower=jnp.asarray(kw["bounds"].lo.numpy()),
+        upper=jnp.asarray(kw["bounds"].hi.numpy()), valid=a["valid"])
     return [np.asarray(v) for v in res[:4]]
 
 
@@ -276,18 +280,22 @@ def test_kernel_route_leaves_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("ndim,n,modes", [
     (2, 2, {}), (2, 3, {}), (3, 2, {}), (2, 2, {"background": "global"})])
 def test_pack_tied_follows_the_shard_solvers_gslots(ndim, n, modes):
-    """pack_tied puts _shard_solver's gslots into the kernel's compact
-    vector: a rigid bucket's tied distance stays at Qt − 1, a tied model
-    slot moves to its compact row, the bounds follow their slots."""
+    """``SlotBounds`` puts _shard_solver's gslots into the kernel's compact
+    vector (``tied``, built once): a rigid bucket's tied distance stays at
+    Qt − 1, a tied model slot moves to its compact row, the compact bounds
+    (``kernel``) follow their slots."""
     model = get_model("gauss")
     con = dimer_global(ndim=ndim) if n == 2 else dataclasses.replace(
         dimer_global(ndim=ndim), cluster_size=n, name="trimer_global")
     lay = build_layout(model, ndim, True, n, modes)
     window = (18,) * ndim
     gslots = _tied_slots(lay, con)
-    lo, hi = _slot_bounds(lay, window, (64,) * ndim, (), con)
+    bounds = _slot_bounds(lay, window, (64,) * ndim, (), con)
+    lo, hi = bounds.lo.numpy(), bounds.hi.numpy()
     Qt, keep, drop, remap = rigid_kernel_slots(lay, con)
-    tied, lo_k, hi_k = pack_tied(lay, con, gslots, lo, hi)
+    assert bounds.tied(gslots) is bounds.tied(gslots)
+    tied = bounds.tied(gslots).numpy()
+    lo_k, hi_k = bounds.kernel.lo.numpy(), bounds.kernel.hi.numpy()
     assert gslots[Qt - 1] and gslots[keep].sum() == gslots.sum()
     want = [Qt - 1] + [int(remap[s]) for s in np.flatnonzero(
         lay.global_slots)]
@@ -299,12 +307,11 @@ def test_pack_tied_follows_the_shard_solvers_gslots(ndim, n, modes):
     assert lo_k[Qt - 1] == lo[Qt - 1] and np.isfinite(hi_k[Qt - 1])
     # unconstrained: the mask's own slots, the bounds as they are
     lay_u = build_layout(get_model("inv_series_2"), 2, True, 2, TRAIN_MODES)
-    lo_u, hi_u = _slot_bounds(lay_u, (14, 14), (64, 64))
-    tied_u, lo_uk, hi_uk = pack_tied(lay_u, None, _tied_slots(lay_u, None),
-                                     lo_u, hi_u)
+    bounds_u = _slot_bounds(lay_u, (14, 14), (64, 64))
+    tied_u = bounds_u.tied(_tied_slots(lay_u, None))
     assert tied_u.tolist() == np.flatnonzero(lay_u.global_slots).tolist()
-    np.testing.assert_array_equal(lo_uk, lo_u)
-    np.testing.assert_array_equal(hi_uk, hi_u)
+    assert bounds_u.kernel.lo is bounds_u.lo
+    assert bounds_u.kernel.hi is bounds_u.hi
 
 
 # ------------------------------------------------------------------ the plan
@@ -474,7 +481,7 @@ def _check_args(name="inv_series_2_n2"):
     inputs, kw = _bucket(name, B=3)
     args = _args(inputs)
     args[7] = torch.ones_like(args[1][..., 0])
-    kw = {k: v for k, v in kw.items() if k not in ("lo", "hi", "max_iter")}
+    kw = {k: v for k, v in kw.items() if k != "max_iter"}
     return args, kw
 
 
@@ -679,7 +686,7 @@ def test_kernel_matches_plain_on_the_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     inputs, kw = _bucket(name, B=40)
-    args = _args(inputs, "cuda")
+    args, kw = _args(inputs, "cuda"), _card(kw)
     before = tied_lm.launches
     res_k = tied_lm(*args, **kw)
     again = tied_lm(*args, **kw)
@@ -727,7 +734,7 @@ def test_kernel_strides_over_lanes_on_the_card(B):
     if B == 1:
         inputs = {k: None if v is None else v[:1] for k, v in inputs.items()}
         inputs["valid"] = np.ones(1, bool)
-    args = _args(inputs, "cuda")
+    args, kw = _args(inputs, "cuda"), _card(kw)
     res_k = tied_lm(*args, **kw)
     res_p = tied_lm_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -744,7 +751,7 @@ def test_register_and_tile_sweeps_agree_on_the_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     inputs, kw = _bucket(name, B=300)
-    args = _args(inputs, "cuda")
+    args, kw = _args(inputs, "cuda"), _card(kw)
     res_p = tied_lm_reference(*args, **kw)
     out = {}
     for ceiling in (None, 0):
@@ -775,7 +782,7 @@ def test_kernel_profiles_on_the_card(profile):
     finally:
         del BUCKETS["_p"]
     assert kw["global_slots"].any()
-    args = _args(inputs, "cuda")
+    args, kw = _args(inputs, "cuda"), _card(kw)
     res_k = tied_lm(*args, **kw)
     res_p = tied_lm_reference(*args, **kw)
     torch.cuda.synchronize()

@@ -18,7 +18,7 @@ from clustertracking_tpu_torch.entry import (
     MODES_3D, RADIUS_3D, WINDOW_3D, entry_3d, example_batch_3d)
 from clustertracking_tpu_torch.models.packing import build_layout
 from clustertracking_tpu_torch.models.registry import get_model
-from clustertracking_tpu_torch.ops.fused_lm import kernel_route
+from clustertracking_tpu_torch.refine import kernel_route
 
 BENCH = Path(__file__).resolve().parents[1] / "portbench"
 SHAPE, PITCH = (32, 48, 48), (16, 24, 24)
