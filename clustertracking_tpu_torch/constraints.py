@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import lru_cache
 from typing import Callable, Optional
 
 import numpy as np
@@ -175,8 +176,7 @@ def pose_to_positions(pose, con: Constraint, dist=None):
     R_c = circumradius_factor(n, D) * dist                   # [B]
     center = pose[:, :D]
     if D == 2:
-        alphas = torch.as_tensor(2 * math.pi * np.arange(n) / n,
-                                 dtype=pose.dtype, device=pose.device)
+        alphas = _pose_constant("angles", n, D, pose.dtype, pose.device)
         ang = pose[:, 2:3] + alphas[None]
         offs = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
     elif n == 2:
@@ -189,10 +189,19 @@ def pose_to_positions(pose, con: Constraint, dist=None):
         offs = torch.stack([u, -u], dim=1)
     else:
         rot = _rodrigues(pose[:, 3:6])
-        base = torch.as_tensor(base_vertices(n, D), dtype=pose.dtype,
-                               device=pose.device)
+        base = _pose_constant("vertices", n, D, pose.dtype, pose.device)
         offs = torch.einsum("bij,nj->bni", rot, base)
     return center[:, None, :] + R_c[:, None, None] * offs
+
+
+@lru_cache(maxsize=64)
+def _pose_constant(which, n, D, dtype, device):
+    """The n-gon's angles 2πi/n, or the base vertices, on ``device``:
+    built once a device and kept, so a rigid solve copies nothing."""
+    if which == "angles":
+        return torch.as_tensor(2 * math.pi * np.arange(n) / n, dtype=dtype,
+                               device=device)
+    return torch.as_tensor(base_vertices(n, D), dtype=dtype, device=device)
 
 
 def positions_to_pose(positions: np.ndarray, con: Constraint) -> np.ndarray:

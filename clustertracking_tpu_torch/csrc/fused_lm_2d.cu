@@ -14,6 +14,19 @@
 // compact vector [center, angle, (distance), non-position slots], the
 // n-gon positions and their chain-rule Jacobian (lm_core.cuh).
 //
+// With rounds > 0 a launch also runs the bucket solver's refit-on-shift
+// loop (refine.py::_shard_solver, the reference's host loop around its
+// solve_fused) inside each warp: the warp takes its cluster's positions
+// at the current x (its slots, or the rigid pose map), centres and clamps
+// the window as ops/gather.py::origins_for does (float32 min and max over
+// the features, rint half to even), cuts and solves it, keeps the round
+// of least rms = sqrt(cost/npix), and goes round again while a position
+// moved more than max_shift, up to `rounds` rounds: each cluster runs the
+// rounds the host loop gives it, no more, and no round needs the host.
+// Its outputs are the best round's x, rms, converged, cost and npix and
+// the iterations of every round; each warp that refits adds its rounds
+// past the first to one device counter.
+//
 // What bounds it on the H100: nothing is read from device memory inside
 // the LM loop, so a solve costs what its warp executes and waits for: the
 // per-pixel model and Jacobian arithmetic (divisions, an expf), the
@@ -28,9 +41,9 @@
 // popcount per 32 pixels): each keeps its value and its (y, x) packed into
 // one int, and every sweep visits only those — a third to a half of a
 // window lies outside the mask and weighs exactly 0.  Shared memory per
-// warp is 2·wy·wx + 2,007 words (gauss, unconstrained; a profile's extras
-// and a pose's constants add to the core), so a 13×13 window takes ~9.4
-// KB; a block is one warp.
+// warp is 2·wy·wx + 153 (the refit loop's) + 2,007 words (gauss,
+// unconstrained; a profile's extras and a pose's constants add to the
+// core), so a 13×13 window takes ~10.0 KB; a block is one warp.
 //
 // Numerics follow the reference kernel: the mask is computed as
 // (off − rel)·(1/r) with explicit _rn intrinsics, so npix matches it
@@ -44,6 +57,8 @@
 // n_iter = 0, converged = 0, npix = 0 (what the reference kernel writes
 // for a frozen tile).  A lane whose frame index or window lies outside
 // the frame stack is not read: its x and cost are NaN and npix is 0.
+// With rounds > 0 such lanes keep their start (x = x0 unclipped, rms =
+// inf, cost, n_iter, converged and npix 0), as the host loop leaves them.
 
 #include "lm_core.cuh"
 
@@ -55,16 +70,18 @@ struct Problem {
   const float* frames;
   int T, H, W;
   const int* frame_idx;      // [B]
-  const int* origin;         // [B, 2]
+  const int* origin;         // [B, 2] (rounds = 0)
   const float* x0;           // [B, V]
   const float* cp;           // [B, n, P]
-  const float* pos_at;       // [B, n, 2]
+  const float* pos_at;       // [B, n, 2] (rounds = 0)
   const float* norm;         // [B]
   const int* valid;          // [B]
   const float* fvalid;       // [B, n]
   const int* slot_idx;       // [n, P]
   int B, n, P, V, iso, wy, wx;
   float inv_ry, inv_rx;
+  int rounds;                // 0: one solve at pos_at / origin; else the loop
+  float max_shift;
   LMConf lm;
   ModelArgs ma;              // profile extras and rigid pose
   float* x_out;              // [B, V]
@@ -72,6 +89,8 @@ struct Problem {
   int* n_iter;               // [B]
   int* converged;            // [B]
   float* npix;               // [B]
+  float* rms;                // [B] (rounds > 0)
+  unsigned long long* refits;  // rounds past the first (rounds > 0)
 };
 
 // The window's in-mask pixels in raster order: packed (y << 16 | x) and
@@ -91,18 +110,62 @@ struct ListedPixels {
   }
 };
 
+// The refit loop's words beside the pixel list: the gather-time
+// positions [n][2], the positions after the round's solve [n][2], the
+// best round's x, and its rms, cost, npix, iterations and converged flag.
+constexpr int kLoopWords = 4 * kMaxFeatures + kMaxSlots + 5;
+
 // Per-warp shared memory: the pixel list (2·npix words, the mask's worst
-// case), then the LM core.
+// case), the refit loop's words, then the LM core.
 template <int Prof, int Pose>
 __host__ __device__ inline CoreLayout warp_layout(int npix) {
-  return core_layout<2, Prof, Pose>(2 * npix);
+  return core_layout<2, Prof, Pose>(2 * npix + kLoopWords);
+}
+
+// Feature i's position at x: its slots (a const position: its value), or
+// in a rigid bucket the n-gon pose map that stage_pose evaluates.
+template <int Pose>
+__device__ inline void feature_position(const Cluster& c, const float* x,
+                                        int i, float* pos) {
+  if constexpr (Pose == kNoPose) {
+    const float* cpi = c.cp + i * c.P;
+    const int* si = c.slot_idx + i * c.P;
+    pos[0] = si[2] >= 0 ? x[si[2]] : cpi[2];
+    pos[1] = si[3] >= 0 ? x[si[3]] : cpi[3];
+  } else {
+    const float Rc = c.fit_dist ? c.circ * x[PoseDim<Pose>::Q] : c.rc_fixed;
+    const float a = x[2] + c.base[i];
+    pos[0] = x[0] + Rc * sinf(a);
+    pos[1] = x[1] + Rc * cosf(a);
+  }
+}
+
+// min / max that keep a NaN once they meet one, as torch.amin / amax do.
+__device__ inline float nan_min(float a, float v) {
+  return (v < a || v != v) ? v : a;
+}
+__device__ inline float nan_max(float a, float v) {
+  return (v > a || v != v) ? v : a;
+}
+
+// The window corner along one axis for positions spanning [lo, hi]:
+// ops/gather.py::origins_for, rounded half to even and clamped so that
+// the window lies inside the frame.
+__device__ inline int window_corner(float lo, float hi, int w, int extent) {
+  const float center = 0.5f * (lo + hi);
+  const int o = __float2int_rn(center - 0.5f * (float)(w - 1));
+  return min(max(o, 0), extent - w);
 }
 
 // One warp, one block, one cluster: a warp that ends frees its place on
 // the SM for the next cluster at once (iteration counts spread 3x around
 // their mean, and a block of several warps would hold its shared memory
-// and registers until its slowest cluster ends).
-template <int Prof, int Pose, int VM>
+// and registers until its slowest cluster ends).  Looped: the refit loop
+// (rounds > 0) or one solve, a template tag: with a run-time flag the one
+// kernel took 130 registers and 3,960 instructions against 121 and 3,320
+// before the loop, and config 1's bucket ran 1.66 ms a call against 1.35;
+// as a tag, 127 and 3,792 in the looped kernel, 1.39 ms (NVIDIA H100).
+template <int Prof, int Pose, int VM, bool Looped>
 __global__ void __launch_bounds__(32, MinBlocks<VM>::N) fused_lm_2d_kernel(Problem p) {
   extern __shared__ float sm[];
   const int lane = threadIdx.x;
@@ -111,16 +174,156 @@ __global__ void __launch_bounds__(32, MinBlocks<VM>::N) fused_lm_2d_kernel(Probl
   const CoreLayout L = warp_layout<Prof, Pose>(npx);
   int* idx = reinterpret_cast<int*>(sm);
   float* val = sm + npx;
+  float* pa = sm + 2 * npx;               // gather-time positions [n][2]
+  float* pn = pa + 2 * kMaxFeatures;      // positions after the solve
+  float* xb = pn + 2 * kMaxFeatures;      // the best round's x
+  float* best = xb + kMaxSlots;           // its rms, cost, npix
+  int* best_i = reinterpret_cast<int*>(best + 3);   // iterations, converged
   const int V = p.V, n = p.n;
   float* xs = sm + L.xs;
 
-  if (lane < V) xs[lane] = clip(p.x0[(size_t)b * V + lane], p.lm.lo[lane], p.lm.hi[lane]);
+  if (lane < V) {
+    const float x0 = p.x0[(size_t)b * V + lane];
+    xs[lane] = clip(x0, p.lm.lo[lane], p.lm.hi[lane]);
+    xb[lane] = x0;
+  }
+  if (lane == 0) {
+    best[0] = __int_as_float(0x7f800000);   // +inf
+    best[1] = 0.f;
+    best[2] = 0.f;
+    best_i[0] = 0;
+    best_i[1] = 0;
+  }
   const int fi = p.frame_idx[b];
-  const int oy = p.origin[2 * b], ox = p.origin[2 * b + 1];
-  const bool inside = fi >= 0 && fi < p.T && oy >= 0 && ox >= 0 &&
-                      oy + p.wy <= p.H && ox + p.wx <= p.W;
   __syncwarp();
-  if (!p.valid[b] || !inside) {
+  Cluster c = make_cluster(p.cp + (size_t)b * n * p.P,
+                           p.fvalid + (size_t)b * n, p.slot_idx, 0.f, 0.f,
+                           0.f, n, p.P, V, p.iso, p.ma, b);
+  int round = 0;
+  if (p.valid[b]) {
+    stage_slots<2, Prof>(c, reinterpret_cast<int*>(sm + L.fs), lane);
+    const float* frame = p.frames + (size_t)fi * p.H * p.W;
+    // One trip a refit round (one trip without the loop): a single call
+    // site of lm_run, whose inlined sweep is the bulk of the code.
+    for (;;) {
+      int oy, ox;
+      if constexpr (Looped) {
+        // the first round centres on the start as given, later ones on
+        // the last solve's x
+        if (lane < n) feature_position<Pose>(c, round == 0 ? xb : xs, lane,
+                                             pa + 2 * lane);
+        __syncwarp();
+        float lo0 = pa[0], hi0 = pa[0], lo1 = pa[1], hi1 = pa[1];
+        for (int i = 1; i < n; ++i) {
+          lo0 = nan_min(lo0, pa[2 * i]);
+          hi0 = nan_max(hi0, pa[2 * i]);
+          lo1 = nan_min(lo1, pa[2 * i + 1]);
+          hi1 = nan_max(hi1, pa[2 * i + 1]);
+        }
+        oy = window_corner(lo0, hi0, p.wy, p.H);
+        ox = window_corner(lo1, hi1, p.wx, p.W);
+      } else {
+        if (lane < n) {
+          const float* q = p.pos_at + ((size_t)b * n + lane) * 2;
+          pa[2 * lane] = q[0];
+          pa[2 * lane + 1] = q[1];
+        }
+        __syncwarp();
+        oy = p.origin[2 * b];
+        ox = p.origin[2 * b + 1];
+      }
+      const bool inside = fi >= 0 && fi < p.T && oy >= 0 && ox >= 0 &&
+                          oy + p.wy <= p.H && ox + p.wx <= p.W;
+      if (!inside) {
+        // not read; with the loop the round fails and the lane keeps its
+        // best round (its start, since a window inside the frame never
+        // leaves it)
+        if constexpr (!Looped) {
+          const float nan = __int_as_float(0x7fc00000);
+          if (lane < V) p.x_out[(size_t)b * V + lane] = nan;
+          if (lane == 0) {
+            p.cost[b] = nan;
+            p.n_iter[b] = 0;
+            p.converged[b] = 0;
+            p.npix[b] = 0.f;
+          }
+          return;
+        }
+        break;
+      }
+      c.org[0] = (float)oy;
+      c.org[1] = (float)ox;
+
+      // Stage the window's in-mask pixels (the fit mask is computed once a
+      // round, from the gather-time positions, as the reference kernel
+      // does).
+      const float orgy = (float)oy, orgx = (float)ox;
+      int cnt = 0;
+      for (int q0 = 0; q0 < npx; q0 += 32) {
+        const int q = q0 + lane;
+        const int qy = q / p.wx, qx = q - qy * p.wx;
+        const float offy = (float)qy, offx = (float)qx;
+        bool hit = false;
+        for (int i = 0; q < npx && i < n; ++i) {
+          if (!(c.fvalid[i] > 0.5f)) continue;
+          const float* pai = pa + 2 * i;
+          const float dmy = __fmul_rn(__fsub_rn(offy, __fsub_rn(pai[0], orgy)), p.inv_ry);
+          const float dmx = __fmul_rn(__fsub_rn(offx, __fsub_rn(pai[1], orgx)), p.inv_rx);
+          const float r2m = __fadd_rn(__fmul_rn(dmy, dmy), __fmul_rn(dmx, dmx));
+          hit = hit || (r2m <= 1.f);
+        }
+        const unsigned m = __ballot_sync(kFullWarp, hit);
+        if (hit) {
+          const int k = cnt + __popc(m & ((1u << lane) - 1u));
+          idx[k] = (qy << 16) | qx;
+          val[k] = frame[(size_t)(oy + qy) * p.W + (ox + qx)];
+        }
+        cnt += __popc(m);
+      }
+      __syncwarp();
+
+      const LMOut r = lm_run<2, Prof, Pose, VM>(
+          c, p.lm, sm, L, lane, ListedPixels{idx, val, cnt, 1.f / p.norm[b]});
+
+      if constexpr (!Looped) {
+        if (lane < V) p.x_out[(size_t)b * V + lane] = xs[lane];
+        if (lane == 0) {
+          p.cost[b] = r.cost;
+          p.n_iter[b] = r.iters;
+          p.converged[b] = r.conv ? 1 : 0;
+          p.npix[b] = (float)cnt;
+        }
+        return;
+      }
+      // the round's rms (an empty mask is a failed fit, not a perfect one)
+      // and the host loop's best-round carry
+      const float rms = cnt > 0 ? sqrtf(r.cost / (float)cnt)
+                                : __int_as_float(0x7f800000);
+      const bool improved = rms < best[0];
+      if (improved && lane < V) xb[lane] = xs[lane];
+      __syncwarp();
+      if (lane == 0) {
+        best_i[0] += r.iters;
+        if (improved) {
+          best[0] = rms;
+          best[1] = r.cost;
+          best[2] = (float)cnt;
+          best_i[1] = r.conv ? 1 : 0;
+        }
+      }
+      if (++round >= p.rounds) break;
+      // refit while a position moved more than max_shift (NaN: stop)
+      if (lane < n) feature_position<Pose>(c, xs, lane, pn + 2 * lane);
+      __syncwarp();
+      float shift = fabsf(pn[0] - pa[0]);
+      for (int k = 1; k < 2 * n; ++k) shift = nan_max(shift, fabsf(pn[k] - pa[k]));
+      __syncwarp();
+      if (!(shift > p.max_shift)) break;
+    }
+  } else if constexpr (!Looped) {
+    const int oy = p.origin[2 * b], ox = p.origin[2 * b + 1];
+    const bool inside = fi >= 0 && fi < p.T && oy >= 0 && ox >= 0 &&
+                        oy + p.wy <= p.H && ox + p.wx <= p.W;
     const float bad = inside ? 0.f : __int_as_float(0x7fc00000);
     if (lane < V) p.x_out[(size_t)b * V + lane] = inside ? xs[lane] : bad;
     if (lane == 0) {
@@ -131,51 +334,28 @@ __global__ void __launch_bounds__(32, MinBlocks<VM>::N) fused_lm_2d_kernel(Probl
     }
     return;
   }
-
-  const Cluster c = make_cluster(p.cp + (size_t)b * n * p.P,
-                                 p.fvalid + (size_t)b * n, p.slot_idx,
-                                 (float)oy, (float)ox, 0.f, n, p.P, V, p.iso,
-                                 p.ma, b);
-  stage_slots<2, Prof>(c, reinterpret_cast<int*>(sm + L.fs), lane);
-
-  // Stage the window's in-mask pixels (the fit mask is computed once,
-  // from the gather-time positions, as the reference kernel does).
-  const float* frame = p.frames + (size_t)fi * p.H * p.W;
-  const float orgy = (float)oy, orgx = (float)ox;
-  int cnt = 0;
-  for (int q0 = 0; q0 < npx; q0 += 32) {
-    const int q = q0 + lane;
-    const int qy = q / p.wx, qx = q - qy * p.wx;
-    const float offy = (float)qy, offx = (float)qx;
-    bool hit = false;
-    for (int i = 0; q < npx && i < n; ++i) {
-      if (!(c.fvalid[i] > 0.5f)) continue;
-      const float* pa = p.pos_at + ((size_t)b * n + i) * 2;
-      const float dmy = __fmul_rn(__fsub_rn(offy, __fsub_rn(pa[0], orgy)), p.inv_ry);
-      const float dmx = __fmul_rn(__fsub_rn(offx, __fsub_rn(pa[1], orgx)), p.inv_rx);
-      const float r2m = __fadd_rn(__fmul_rn(dmy, dmy), __fmul_rn(dmx, dmx));
-      hit = hit || (r2m <= 1.f);
-    }
-    const unsigned m = __ballot_sync(kFullWarp, hit);
-    if (hit) {
-      const int k = cnt + __popc(m & ((1u << lane) - 1u));
-      idx[k] = (qy << 16) | qx;
-      val[k] = frame[(size_t)(oy + qy) * p.W + (ox + qx)];
-    }
-    cnt += __popc(m);
-  }
   __syncwarp();
-
-  const LMOut r = lm_run<2, Prof, Pose, VM>(
-      c, p.lm, sm, L, lane, ListedPixels{idx, val, cnt, 1.f / p.norm[b]});
-
-  if (lane < V) p.x_out[(size_t)b * V + lane] = xs[lane];
+  if (lane < V) p.x_out[(size_t)b * V + lane] = xb[lane];
   if (lane == 0) {
-    p.cost[b] = r.cost;
-    p.n_iter[b] = r.iters;
-    p.converged[b] = r.conv ? 1 : 0;
-    p.npix[b] = (float)cnt;
+    p.rms[b] = best[0];
+    p.cost[b] = best[1];
+    p.npix[b] = best[2];
+    p.n_iter[b] = best_i[0];
+    p.converged[b] = best_i[1];
+    if (round > 1) atomicAdd(p.refits, (unsigned long long)(round - 1));
   }
+}
+
+template <class Kernel>
+int launch_kernel(Kernel kernel, const Problem& p, size_t smem,
+                  cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<p.B, 32, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <int Prof, int Pose, int VM>
@@ -184,14 +364,11 @@ int launch_t(Problem p, cudaStream_t stream) {
       sizeof(float) * (size_t)warp_layout<Prof, Pose>(p.wy * p.wx).total;
   constexpr size_t kBlockBudget = 200 * 1024;
   if (smem > kBlockBudget) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_lm_2d_kernel<Prof, Pose, VM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fused_lm_2d_kernel<Prof, Pose, VM><<<p.B, 32, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return p.rounds > 0
+             ? launch_kernel(fused_lm_2d_kernel<Prof, Pose, VM, true>, p,
+                             smem, stream)
+             : launch_kernel(fused_lm_2d_kernel<Prof, Pose, VM, false>, p,
+                             smem, stream);
 }
 
 // The gauss profile has register instantiations at each slot-count
@@ -235,7 +412,11 @@ extern "C" int fused_lm_2d_smem_words(int npix, int prof, int pose) {
   return -1;
 }
 
-// Launches the solve on `stream`.  prof / pose: the profile tag and pose
+// Launches the solve on `stream`.  rounds = 0: one solve at pos_at and
+// origin; rounds > 0: up to that many refit rounds (pos_at and origin
+// unused, may be null), refitting while a position moved more than
+// max_shift, the rms out in rms [B] and the rounds past the first added
+// to *refits.  prof / pose: the profile tag and pose
 // kind (lm_core.cuh; pose kNoPose or kNgon2D); nx: extras per feature;
 // for a rigid bucket (V = the compact length) fit_dist, circ, rc_fixed =
 // circ·distance, base = the n-gon angles [n] and xn [B] = the inert
@@ -249,18 +430,21 @@ extern "C" int fused_lm_2d_launch(
     const int* valid, const float* fvalid, const int* slot_idx,
     const float* lo, const float* hi,
     int B, int n, int P, int V, int iso, int wy, int wx,
-    float inv_ry, float inv_rx, int max_iter, float ftol, float xtol,
-    float lam0, float lam_up, float lam_down, float lam_max, float plateau,
+    float inv_ry, float inv_rx, int rounds, float max_shift, int max_iter,
+    float ftol, float xtol, float lam0, float lam_up, float lam_down,
+    float lam_max, float plateau,
     int prof, int nx, int pose, int fit_dist, float circ, float rc_fixed,
     const float* base, const float* xn,
     float* x_out, float* cost, int* n_iter, int* converged, float* npix,
-    void* stream) {
+    float* rms, unsigned long long* refits, void* stream) {
   const int n_ex = prof == kInvSeries ? nx : (prof == kRing || prof == kHat);
   if (V < 1 || V > kMaxSlots || n < 1 || n > kMaxFeatures ||
       P != (iso ? 5 : 6) + n_ex || nx != n_ex || nx > kMaxSeries ||
       wy < 1 || wx < 1 || B < 0 || (pose != kNoPose && pose != kNgon2D) ||
       (pose != kNoPose && (base == nullptr || xn == nullptr ||
-                           V < PoseDim<kNgon2D>::Q + fit_dist))) {
+                           V < PoseDim<kNgon2D>::Q + fit_dist)) ||
+      rounds < 0 || (rounds == 0 && (pos_at == nullptr || origin == nullptr)) ||
+      (rounds > 0 && (rms == nullptr || refits == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0) return 0;
@@ -268,8 +452,9 @@ extern "C" int fused_lm_2d_launch(
                   lam_max, plateau};
   const ModelArgs ma{nx, base, circ, rc_fixed, fit_dist, xn};
   Problem p{frames, T, H, W, frame_idx, origin, x0, cp, pos_at, norm, valid,
-            fvalid, slot_idx, B, n, P, V, iso, wy, wx, inv_ry, inv_rx, lm,
-            ma, x_out, cost, n_iter, converged, npix};
+            fvalid, slot_idx, B, n, P, V, iso, wy, wx, inv_ry, inv_rx,
+            rounds, max_shift, lm, ma, x_out, cost, n_iter, converged, npix,
+            rms, refits};
   cudaStream_t s = (cudaStream_t)stream;
   if (pose == kNgon2D) return launch_pose<kNgon2D>(prof, p, s);
   return launch_pose<kNoPose>(prof, p, s);

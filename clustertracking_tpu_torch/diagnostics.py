@@ -28,13 +28,16 @@ caller's):
   refit loop's state tensors;
 - ``solver.round`` (``args`` the round's index): one refit round, from the
   check that any lane still needs it to the bookkeeping after its solve
-  (shift, rms, the best-so-far updates);
-- ``solver.kernel`` (``args`` the route taken and, where the gathered
-  route launches ``pixel_lm`` on CUDA, its mode, ``resident`` or
-  ``streamed``, and its sums, ``f64_mma`` or ``fp32_regs``), inside
-  ``solver.round``: the route's call for the round: window origins, the
-  gather and the solve (``fused_lm_2d``, ``pixel_lm``, ``block_lm``,
-  ``tied_lm``, ``lm_solve`` or ``lm_solve_global_shards``);
+  (shift, rms, the best-so-far updates); on the fused route on CUDA,
+  whose rounds all run inside one ``fused_lm_2d`` launch, one range
+  (round 0) around that launch;
+- ``solver.kernel`` (``args`` the route taken, ``refit=device`` where
+  the rounds run on the device, and, where the gathered route launches
+  ``pixel_lm`` on CUDA, its mode, ``resident`` or ``streamed``, and its
+  sums, ``f64_mma`` or ``fp32_regs``), inside ``solver.round``: the
+  route's call for the round: window origins, the gather and the solve
+  (``fused_lm_2d``, ``pixel_lm``, ``block_lm``, ``tied_lm``, ``lm_solve``
+  or ``lm_solve_global_shards``);
 - ``solver.gather`` (``args`` B and the window, ``9x13x13``), inside
   ``solver.kernel``: the round's window gather (``window_gather``, or
   ``gather_stack``), on every route but the fused one, which gathers
@@ -63,6 +66,10 @@ Usage::
     with ctt.diagnostics.trace_to("/tmp/trace"):
         ctt.refine_leastsq(...)
 
+``refit_rounds()`` reads, on demand, the device counter of the refit
+rounds past each cluster's first that ``fused_lm_2d`` ran inside its
+launches (it waits for the device; no solve reads it).
+
 The non-finite trap (``debug_nans`` or env ``CT_TPU_DEBUG_NANS=1``) makes
 ``refine_leastsq`` raise ``FloatingPointError`` at the first dispatch
 with a non-finite fit cost, instead of rejecting the lane silently.
@@ -85,7 +92,7 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 __all__ = ["BatchRecord", "StatsCollector", "collect", "stage",
            "trace_to", "debug_nans", "nan_debug_active", "record_batch",
-           "record_ledger"]
+           "record_ledger", "refit_rounds"]
 
 _NAN_DEBUG_ENV = os.environ.get("CT_TPU_DEBUG_NANS", "") not in ("", "0")
 
@@ -277,6 +284,17 @@ class stage:
             self._range.__exit__(*exc)
             self._range = None
         return False
+
+
+def refit_rounds(device=None) -> int:
+    """The refit rounds past each cluster's first that ``fused_lm_2d`` ran
+    in its launches on ``device`` (every device: None) since the process
+    started, from the kernel's device counter; waits for the device's
+    queued work."""
+    from .ops.fused_lm import fused_lm_2d
+
+    return sum(int(t.item()) for d, t in fused_lm_2d.refits.items()
+               if device is None or d == torch.device(device))
 
 
 @contextlib.contextmanager

@@ -31,6 +31,7 @@ degenerates to cluster-shared there too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -134,19 +135,31 @@ class ParamLayout:
             cols.append(acc / len(slots) if len(slots) > 1 else acc)
         return torch.stack(cols, dim=-1)
 
+    @functools.cached_property
+    def _unpack_on(self) -> dict:
+        return {}
+
+    def unpack_index(self, device):
+        """(slot of each (feature, param) [n·P] long, const mask [n, P]
+        bool) on ``device``, built once a device: a bucket's solve copies
+        no index to the device."""
+        device = torch.device(device)
+        if device not in self._unpack_on:
+            self._unpack_on[device] = (
+                torch.as_tensor(np.maximum(self.slot_idx, 0).reshape(-1),
+                                dtype=torch.long, device=device),
+                torch.as_tensor(self.slot_idx < 0, device=device))
+        return self._unpack_on[device]
+
     def vect_to_params(self, vect, const_params):
         """vect[..., V] + const values → params[..., n, P].
 
         Const (slot −1) entries come from ``const_params``; fitted entries
         are gathered (broadcast for shared slots)."""
-        idx = torch.as_tensor(
-            np.maximum(self.slot_idx, 0).reshape(-1), device=vect.device,
-            dtype=torch.long,
-        )
+        idx, is_const = self.unpack_index(vect.device)
         gathered = vect[..., idx].reshape(
             *vect.shape[:-1], *self.slot_idx.shape
         )
-        is_const = torch.as_tensor(self.slot_idx < 0, device=vect.device)
         return torch.where(is_const, const_params, gathered)
 
 

@@ -7,13 +7,27 @@ current feature positions, on the device that holds the tensors.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import torch
 
 from .residual import window_offsets
 
-__all__ = ["clamp_origins", "gather_stack", "radius_mask", "origins_for"]
+__all__ = ["clamp_origins", "gather_stack", "radius_mask", "origins_for",
+           "shape_tensor"]
+
+
+@lru_cache(maxsize=128)
+def _shape_tensor(values, dtype, device):
+    return torch.as_tensor(values, dtype=dtype, device=device)
+
+
+def shape_tensor(values, dtype, device):
+    """``values`` (a few numbers: a window's extents, a radius) as a [D]
+    tensor on ``device``, built once a device and kept, so that a solve's
+    rounds copy no shape to the device."""
+    return _shape_tensor(tuple(values), dtype, torch.device(device))
 
 
 def origins_for(pos, window_shape: Tuple[int, ...], frame_shape):
@@ -25,16 +39,14 @@ def origins_for(pos, window_shape: Tuple[int, ...], frame_shape):
     lo = torch.amin(pos, dim=1)
     hi = torch.amax(pos, dim=1)
     center = 0.5 * (lo + hi)
-    w = torch.as_tensor(window_shape, dtype=pos.dtype, device=pos.device)
+    w = shape_tensor(map(int, window_shape), pos.dtype, pos.device)
     origin = torch.round(center - 0.5 * (w - 1.0)).to(torch.int32)
     return clamp_origins(origin, window_shape, frame_shape)
 
 
 def clamp_origins(origin, window_shape, frame_shape):
-    maxi = torch.as_tensor(
-        [fs - ws for fs, ws in zip(frame_shape, window_shape)],
-        dtype=torch.int32, device=origin.device,
-    )
+    maxi = shape_tensor((int(fs) - int(ws) for fs, ws in zip(
+        frame_shape, window_shape)), torch.int32, origin.device)
     return torch.minimum(torch.clamp(origin, min=0), maxi)
 
 
@@ -63,7 +75,7 @@ def radius_mask(pos, origin, window_shape: Tuple[int, ...], radius,
     """
     offsets = window_offsets(window_shape, dtype, pos.device)  # [D, Npix]
     rel = pos - origin[:, None, :].to(dtype)                   # [B, n, D]
-    r = torch.as_tensor(radius, dtype=dtype, device=pos.device)
+    r = shape_tensor(map(float, radius), dtype, pos.device)
     d = (offsets[None, None] - rel[..., None]) / r[:, None]    # [B,n,D,Npix]
     r2 = torch.sum(d * d, dim=-2)
     if fvalid is not None:

@@ -401,8 +401,10 @@ def check_pixel_lm_args(vect0, const_params, pixels, pos_at, origin, norm,
     if pixels is not None:
         check_tensor(who, "pixels", pixels, f32,
                      (B, int(np.prod(window_shape))), device)
-    check_tensor(who, "pos_at", pos_at, f32, (B, n, D), device)
-    check_tensor(who, "origin", origin, torch.int32, (B, D), device)
+    if pos_at is not None:   # None: fused_lm_2d's refit loop
+        check_tensor(who, "pos_at", pos_at, f32, (B, n, D), device)
+    if origin is not None:
+        check_tensor(who, "origin", origin, torch.int32, (B, D), device)
     check_tensor(who, "norm", norm, f32, (B,), device)
     check_tensor(who, "valid", valid, torch.bool, (B,), device)
     check_tensor(who, "fvalid", fvalid, f32, (B, n), device)

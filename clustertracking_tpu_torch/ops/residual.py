@@ -17,6 +17,7 @@ The pixel at window index (i0, i1, ...) has position origin + index.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
@@ -39,7 +40,14 @@ class ModelFns(NamedTuple):
 
 def window_offsets(window_shape: Tuple[int, ...], dtype=torch.float32,
                    device="cpu"):
-    """[D, Npix] tensor of pixel index offsets for a window."""
+    """[D, Npix] tensor of pixel index offsets for a window, built once a
+    window, dtype and device and kept (callers only read it)."""
+    return _window_offsets(tuple(int(s) for s in window_shape), dtype,
+                           torch.device(device))
+
+
+@lru_cache(maxsize=64)
+def _window_offsets(window_shape, dtype, device):
     grids = np.meshgrid(
         *[np.arange(s) for s in window_shape], indexing="ij"
     )

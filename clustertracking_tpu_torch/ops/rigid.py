@@ -164,7 +164,8 @@ def make_constrained_fns(model, layout: ParamLayout, window_shape,
         con_fun = torch.func.vmap(constraint.fun)
 
         def positions_of(vect, params_ref):
-            return layout.vect_to_params(vect, params_ref)[..., pos_idx]
+            p0 = pos_idx[0]   # a slice: no index copied to the device
+            return layout.vect_to_params(vect, params_ref)[..., p0:p0 + D]
 
         def params_of(vect, params_ref):
             return layout.vect_to_params(vect, params_ref)

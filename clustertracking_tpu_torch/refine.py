@@ -8,7 +8,9 @@ cluster of the bucket together:
   refit-on-shift outer loop (``max_iter``/``max_shift``) all run on the
   device that holds the frames; on CUDA each bucket takes the kernel route
   ``kernel_route`` names, decided once per device (``route_on``): 'fused' (2D
-  windows, ``csrc/fused_lm_2d.cu``), 'gathered' (3D and large 2D windows,
+  windows, ``csrc/fused_lm_2d.cu``, whose launch runs every refit round
+  itself, so a bucket's solve reads nothing back to the host), 'gathered'
+  (3D and large 2D windows,
   ``csrc/window_gather.cu`` then ``csrc/pixel_lm.cu``, once per refit
   round), 'block' (unconstrained buckets of 20 slots or more, such as
   config 5's chains: ``csrc/window_gather.cu`` then
@@ -277,6 +279,9 @@ def _shard_solver(
     layout = build_layout(model, ndim, isotropic, n, dict(param_mode_key))
     use_global = _uses_global(layout, constraint)
     pos_idx = list(layout.pos_param_idx)
+    # the positions are the ndim params after signal: a slice, which
+    # copies no index to the device
+    pos_cols = slice(pos_idx[0], pos_idx[0] + ndim)
     route = kernel_route(model, layout, use_global, constraint, window_shape)
     if lm_backend == "kernel" and route is None:
         raise ValueError(
@@ -314,7 +319,7 @@ def _shard_solver(
 
     def positions_of(sh, vect):
         if constraint is None:
-            return layout.vect_to_params(vect, sh.params0)[..., pos_idx]
+            return layout.vect_to_params(vect, sh.params0)[..., pos_cols]
         return fns_on(sh.device).positions_of(vect, sh.params0)
 
     def setup(frames, frame_idx, params0, pose0, valid, fvalid=None):
@@ -373,6 +378,16 @@ def _shard_solver(
         return fused_lm_2d(vect, sh.params0, sh.frames, sh.frame_idx, pos_at,
                            origin, sh.norm, need, sh.fvalid,
                            bounds=sh.bounds, **warp_kw), pos_at
+
+    @each_shard
+    def fused_refit(sh, vect, need):
+        """Every refit round of one shard in one ``fused_lm_2d`` launch,
+        on the device: (best x, rms, converged, iterations)."""
+        res = fused_lm_2d(vect, sh.params0, sh.frames, sh.frame_idx, None,
+                          None, sh.norm, need, sh.fvalid, bounds=sh.bounds,
+                          rounds=max(max_iter, 1), max_shift=max_shift,
+                          **warp_kw)
+        return res.x, res.rms, res.converged, res.n_iter
 
     @each_shard
     def gathered_round(sh, vect, need):
@@ -441,9 +456,13 @@ def _shard_solver(
         'torch'), ``tag`` (the dispatches' ``diagnostics`` backend:
         ``cuda-fused``, ``cpu-torch-rigid``, ...), ``mode`` and ``sums``
         (``pixel_lm``'s, where the gathered route runs on CUDA, else
-        None), ``span_args`` (``solver.kernel``'s) and ``solve(shs, vects,
+        None), ``span_args`` (``solver.kernel``'s), ``solve(shs, vects,
         needs)``, one refit round: (LMResult, gather-time positions) a
-        shard.  'auto' takes the bucket's kernel route (``kernel_route``)
+        shard, and ``refit``: where the rounds run on the device (the
+        fused route on CUDA), ``refit(shs, vects, needs)``, the whole
+        refit loop: (best x, rms, converged, iterations) a shard, with
+        nothing read back to the host; else None, and the host runs the
+        rounds.  'auto' takes the bucket's kernel route (``kernel_route``)
         on CUDA; 'kernel' forces it (its plain versions on CPU); 'torch',
         a bucket with no kernel route and a tie across shards, whose sums
         cross devices, take lm_solve (lm_solve_global_shards when
@@ -457,10 +476,14 @@ def _shard_solver(
                 mode=launch_mode(model, layout, constraint, window_shape,
                                  device, streaming),
                 sums=sum_path(model, layout, constraint))
+        refit = (fused_refit if taken == "fused" and device.type == "cuda"
+                 else None)
+        if refit is not None:
+            span_args["refit"] = "device"
         return types.SimpleNamespace(
             taken=taken, tag=f"{device.type}-{taken}{kind}",
             mode=span_args.get("mode"), sums=span_args.get("sums"),
-            span_args=span_args, solve=rounds[taken])
+            span_args=span_args, solve=rounds[taken], refit=refit)
 
     def finish(sh, vect_best, rms_best, conv_best, iters):
         """The outputs of one shard, with ``compute_error``'s std."""
@@ -523,27 +546,45 @@ def _shard_solver(
         lockstep: every shard runs the same rounds, and the loop stops
         when no lane of any shard still needs a round.  A tied bucket's
         round is one joint solve over every shard (its sums all-reduced);
-        an untied bucket's rounds are each shard's own."""
+        an untied bucket's rounds are each shard's own.  Where the route
+        runs the rounds on the device (``refit``), each shard's loop is
+        one launch and the call returns without waiting for it."""
         with diagnostics.stage("solver.setup", {
                 "n": n, "B": sum(a[2].shape[0] for a in shard_args)}):
             shs = [setup(*a) for a in shard_args]
             route = route_on(shs[0].device, len(shs))
-            kernel_args = route.span_args
-            # Refit-on-shift: a lane whose positions moved more than
-            # max_shift is re-gathered around its new positions and solved
-            # again.  The next round starts from the latest iterate, but
-            # the REPORTED fit is each lane's best finite round
-            # (re-centering changes the data a lane is fit against, and a
-            # later round can be worse).
             vect = [sh.vect0 for sh in shs]
             need = [sh.valid for sh in shs]
-            iters = [torch.zeros((sh.B,), dtype=torch.int32,
-                                 device=sh.device) for sh in shs]
-            vect_best = list(vect)
-            rms_best = [torch.full((sh.B,), torch.inf, device=sh.device)
-                        for sh in shs]
-            conv_best = [torch.zeros((sh.B,), dtype=torch.bool,
+            if route.refit is None:
+                # Refit-on-shift: a lane whose positions moved more than
+                # max_shift is re-gathered around its new positions and
+                # solved again.  The next round starts from the latest
+                # iterate, but the REPORTED fit is each lane's best finite
+                # round (re-centering changes the data a lane is fit
+                # against, and a later round can be worse).
+                iters = [torch.zeros((sh.B,), dtype=torch.int32,
                                      device=sh.device) for sh in shs]
+                vect_best = list(vect)
+                rms_best = [torch.full((sh.B,), torch.inf, device=sh.device)
+                            for sh in shs]
+                conv_best = [torch.zeros((sh.B,), dtype=torch.bool,
+                                         device=sh.device) for sh in shs]
+        if route.refit is not None:
+            with diagnostics.stage("solver.round", {"round": 0}), \
+                    diagnostics.stage("solver.kernel", route.span_args):
+                best = route.refit(shs, vect, need)
+        else:
+            best = host_rounds(route, shs, vect, need, vect_best, rms_best,
+                               conv_best, iters)
+        with diagnostics.stage("solver.finish"):
+            return [finish(sh, *b) for sh, b in zip(shs, best)]
+
+    def host_rounds(route, shs, vect, need, vect_best, rms_best, conv_best,
+                    iters):
+        """The refit loop on the host, one ``route.solve`` a round, from
+        the carry ``vect_best`` .. ``iters`` (lists a shard): (best x, rms,
+        converged, iterations) a shard."""
+        kernel_args = route.span_args
         for it in range(max(max_iter, 1)):
             with diagnostics.stage("solver.round", {"round": it}):
                 if it > 0 and not any(bool(nd.any()) for nd in need):
@@ -573,9 +614,7 @@ def _shard_solver(
                                                conv_best[s])
                     need[s] = need[s] & (shift > max_shift)
                     vect[s] = res.x
-        with diagnostics.stage("solver.finish"):
-            return [finish(*a) for a in zip(shs, vect_best, rms_best,
-                                             conv_best, iters)]
+        return list(zip(vect_best, rms_best, conv_best, iters))
 
     return solve_shards, layout, use_global, route_on
 

@@ -432,9 +432,12 @@ def test_bucket_solver_kernel_route_matches_plain_route_on_the_card():
     """The whole bucket solver on the card, kernel route ('auto') vs plain
     route ('torch'), on a batch whose starts are off by up to 1.2 px (so
     some lanes take a second refit round, where most lanes are frozen) and
-    whose last lanes are padding (valid False)."""
+    whose last lanes are padding (valid False).  The kernel route runs
+    every round in one looped launch: the device counter of rounds past
+    the first moves."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from clustertracking_tpu_torch.diagnostics import refit_rounds
     from clustertracking_tpu_torch.refine import _bucket_solver
 
     frames, fidx, params0, pose0, valid = example_batch(B=512,
@@ -451,11 +454,14 @@ def test_bucket_solver_kernel_route_matches_plain_route_on_the_card():
               None, 1e5, 10, 1.0, 60, 1.49e-8, 1.49e-8, False)
     kernel_route, _ = _bucket_solver(*common, "auto")
     plain_route, _ = _bucket_solver(*common, "torch")
-    before = fused_lm_2d.launches
+    before = fused_lm_2d.launches, fused_lm_2d.launches_looped
+    refits = refit_rounds()
     pk, rk, ck, ik, _ = kernel_route(*args)
     pp, rp, cp, ip, _ = plain_route(*args)
     torch.cuda.synchronize()
-    assert fused_lm_2d.launches - before >= 2  # a second refit round ran
+    assert (fused_lm_2d.launches, fused_lm_2d.launches_looped) == (
+        before[0] + 1, before[1] + 1)
+    assert refit_rounds() > refits  # a second refit round ran
     v = valid
     np.testing.assert_allclose(pk.cpu().numpy()[v][..., 2:4],
                                pp.cpu().numpy()[v][..., 2:4], atol=1e-3,
@@ -566,3 +572,405 @@ def test_refine_leastsq_fitted_background_bounds_and_edges_on_the_card():
                                out_p["cost"].to_numpy(), rtol=1e-3)
     np.testing.assert_array_equal(out_k["fit_converged"].to_numpy(),
                                   out_p["fit_converged"].to_numpy())
+
+
+# ---------------------------------------------------------------------------
+# The refit loop (``rounds``): the kernel runs every refit round of the
+# bucket solver inside its launch; ``refit_on_host`` is its plain version,
+# the host loop around one solve a round.  On the CPU the plain loop is
+# held bit for bit to the bucket solver's own host loop, and the constants
+# the solve builds once a device to the code that built them every call;
+# on a card the kernel's loop is held to the host loop over the kernel's
+# single solve, and a bucket's solve is run with PyTorch's sync debug mode
+# set to raise.
+
+REFIT_WINDOW = (13, 13)
+REFIT_RADIUS = (4.5, 4.5)
+
+
+def _refit_scene(kind, B, lm_iter, seed=5):
+    """(constraint, layout, model, wrapper args [vect0, params0, frames,
+    frame_idx, norm, valid], frame shape, bucket solver configuration) of
+    a refit scene: 'dimer2d' (``entry.example_batch``), 'shifted' (the
+    same with starts off by up to ±1.5 px, and every fourth cluster moved
+    whole by up to ±6 px, so that lanes take one to three rounds),
+    'ngon_dimer' / 'ngon_trimer' (config 3's rigid scenes,
+    ``entry.example_batch_rigid``, noise σ=1, every fourth cluster's start
+    moved whole by up to ±6 px) and 'disc' (dimers of the disc profile
+    with noise σ=0.5, starts ±1.5 px).  The last two lanes are padding
+    (valid False)."""
+    from clustertracking_tpu_torch.constraints import (
+        dimer, positions_to_pose, trimer)
+    from clustertracking_tpu_torch.entry import example_batch_rigid
+    from clustertracking_tpu_torch.ops.rigid import make_constrained_fns
+
+    rng = np.random.default_rng(seed)
+    con, window, radius, name = None, REFIT_WINDOW, REFIT_RADIUS, "gauss"
+    if kind in ("dimer2d", "shifted"):
+        frames, fidx, params0, pose0, valid = example_batch(
+            B=B, frame_size=128, seed=seed)
+        if kind == "shifted":
+            params0[..., 2:4] += rng.uniform(-1.5, 1.5,
+                                             params0[..., 2:4].shape)
+            params0[::4, :, 2:4] += rng.uniform(-6.0, 6.0, (-(-B // 4), 1,
+                                                             2))
+    elif kind.startswith("ngon"):
+        config = "3-dimer" if kind == "ngon_dimer" else "3-trimer"
+        con = dimer(5.0, 2) if kind == "ngon_dimer" else trimer(5.0, 2)
+        window = (15, 15) if kind == "ngon_dimer" else (17, 17)
+        frames, fidx, params0, pose0, valid = example_batch_rigid(
+            config, B=B, seed=seed)
+        frames = frames + rng.normal(0, 1.0, frames.shape).astype(
+            np.float32)
+        params0[::4, :, 2:4] += rng.uniform(-6.0, 6.0, (-(-B // 4), 1, 2))
+        pose0 = positions_to_pose(params0[:, :, 2:4], con).astype(
+            np.float32)
+    else:
+        name = "disc"
+        frames = np.zeros((-(-B // 64), 128, 128), np.float32)
+        params0 = np.zeros((B, 2, 5), np.float32)
+        fidx = np.zeros(B, np.int32)
+        for b in range(B):
+            t, cell = b // 64, b % 64
+            center = (np.array([cell // 8, cell % 8]) * 16 + 8.0
+                      + rng.uniform(-1, 1, 2))
+            true = artificial.draw_cluster(
+                frames[t], center, size=2.5, separation=5.0, n=2,
+                signal=150.0, angle=rng.uniform(0, np.pi), feat_func="disc")
+            params0[b, :, 1] = 150.0
+            params0[b, :, 2:4] = true + rng.uniform(-1.5, 1.5, true.shape)
+            params0[b, :, 4] = 2.5
+            fidx[b] = t
+        frames += rng.normal(0, 0.5, frames.shape).astype(np.float32)
+        pose0 = np.zeros((B, 0), np.float32)
+        valid = np.ones(B, bool)
+    valid = valid.copy()
+    valid[-2:] = False
+    model = get_model(name)
+    n = params0.shape[1]
+    lay = build_layout(model, 2, True, n, {})
+    p0 = _t(params0)
+    if con is None:
+        vect0 = lay.vect_from_params(p0)
+    else:
+        vect0 = make_constrained_fns(model, lay, window, con).vect_of(
+            p0, _t(pose0))
+    norm = torch.clamp(torch.amax(torch.abs(p0[..., 1]), dim=1), min=1e-6)
+    args = [vect0, p0, _t(frames), _t(fidx), norm, _t(valid)]
+    config = (model, 2, True, n, (), window, radius, (), con, 1e5, 10, 1.0,
+              lm_iter, 1.49e-8, 1.49e-8, False)
+    return con, lay, model, args, tuple(frames.shape[1:]), config, pose0
+
+
+def _refit_kw(con, lay, model, frame_shape, config, device):
+    window = config[5]
+    return dict(model=model, layout=lay, window_shape=window,
+                bounds=_slot_bounds(lay, window, frame_shape, (), con,
+                                    device),
+                radius=config[6], max_iter=config[12], constraint=con)
+
+
+def _counting(solve):
+    """``solve`` that keeps, a call, the lanes it solves."""
+    def call(*args, **kw):
+        call.lanes.append(args[7].clone())
+        return solve(*args, **kw)
+    call.lanes = []
+    return call
+
+
+def test_shape_constants_are_built_once_a_device_and_match():
+    """The constants a solve used to copy to the device every round —
+    ``vect_to_params``' slot index and const mask, ``origins_for`` /
+    ``clamp_origins``' window and frame extents, the n-gon's angles and
+    base vertices, the window offsets — are built once a device and kept:
+    the same tensor object on a second call, equal to what the uncached
+    code built, and the results of the functions that use them equal to
+    the uncached formulas on the CPU."""
+    from clustertracking_tpu_torch.constraints import (
+        pose_to_positions, tetramer, trimer)
+    from clustertracking_tpu_torch.ops.gather import (
+        clamp_origins, shape_tensor)
+    from clustertracking_tpu_torch.ops.residual import window_offsets
+
+    cpu = torch.device("cpu")
+    lay = build_layout(get_model("gauss"), 2, False, 3,
+                       {"size_y": "cluster", "background": "cluster",
+                        "signal": "const"})
+    idx, is_const = lay.unpack_index(cpu)
+    assert lay.unpack_index("cpu")[0] is idx
+    np.testing.assert_array_equal(
+        idx.numpy(), np.maximum(lay.slot_idx, 0).reshape(-1))
+    np.testing.assert_array_equal(is_const.numpy(), lay.slot_idx < 0)
+    rng = np.random.default_rng(0)
+    vect = torch.as_tensor(rng.normal(size=(5, lay.n_slots)), dtype=torch.float32)
+    params = torch.as_tensor(rng.normal(size=(5, 3, lay.n_params)),
+                             dtype=torch.float32)
+    want = torch.where(torch.as_tensor(lay.slot_idx < 0), params,
+                       vect[..., torch.as_tensor(np.maximum(
+                           lay.slot_idx, 0).reshape(-1))].reshape(5, 3, -1))
+    got = lay.vect_to_params(vect, params)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    pos_idx = list(lay.pos_param_idx)
+    p0 = pos_idx[0]
+    np.testing.assert_array_equal(got[..., p0:p0 + 2].numpy(),
+                                  got[..., pos_idx].numpy())
+
+    # origins: half-integer centres (round half to even), edges, NaN
+    pos = torch.as_tensor(rng.uniform(-5, 70, (64, 3, 2)),
+                          dtype=torch.float32)
+    pos[:8] = torch.round(pos[:8] * 2) / 2
+    pos[8, 0, 0] = torch.nan
+    for window, frame in (((13, 13), (64, 48)), ((9, 12), (30, 70))):
+        w = torch.as_tensor(window, dtype=torch.float32)
+        center = 0.5 * (torch.amin(pos, dim=1) + torch.amax(pos, dim=1))
+        raw = torch.round(center - 0.5 * (w - 1.0)).to(torch.int32)
+        maxi = torch.as_tensor([f - s for f, s in zip(frame, window)],
+                               dtype=torch.int32)
+        want = torch.minimum(torch.clamp(raw, min=0), maxi)
+        np.testing.assert_array_equal(
+            origins_for(pos, window, frame).numpy(), want.numpy())
+        np.testing.assert_array_equal(
+            clamp_origins(raw, window, frame).numpy(), want.numpy())
+    assert shape_tensor((13, 13), torch.float32, "cpu") is shape_tensor(
+        [13, 13], torch.float32, cpu)
+    offs = window_offsets((4, 5), torch.float32, "cpu")
+    assert window_offsets([4, 5], torch.float32, cpu) is offs
+    grid = np.meshgrid(np.arange(4), np.arange(5), indexing="ij")
+    np.testing.assert_array_equal(
+        offs.numpy(), np.stack([g.ravel() for g in grid]))
+
+    # the pose maps' constants
+    for con, Q in ((trimer(5.0, 2), 3), (tetramer(3.2), 6)):
+        pose = torch.as_tensor(rng.normal(size=(7, Q)), dtype=torch.float32)
+        got = pose_to_positions(pose, con)
+        n, D = con.cluster_size, con.ndim
+        if D == 2:
+            ang = pose[:, 2:3] + torch.as_tensor(
+                2 * np.pi * np.arange(n) / n, dtype=torch.float32)[None]
+            offs = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+        else:
+            from clustertracking_tpu_torch.constraints import (
+                _rodrigues, base_vertices)
+            base = torch.as_tensor(base_vertices(n, D), dtype=torch.float32)
+            offs = torch.einsum("bij,nj->bni", _rodrigues(pose[:, 3:6]),
+                                base)
+        from clustertracking_tpu_torch.constraints import (
+            circumradius_factor)
+        dist = torch.full((7,), con.dist, dtype=torch.float32)
+        want = pose[:, None, :D] + (circumradius_factor(n, D) * dist)[
+            :, None, None] * offs
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_fused_route_on_the_cpu_runs_the_host_loop(monkeypatch):
+    """On the CPU, ``lm_backend='kernel'``'s fused route keeps the host
+    loop: its route record runs no rounds on the device (``refit`` None,
+    no ``refit`` in the span's args) and the solver calls the wrapper's
+    single solve once a round, the later rounds on the lanes that still
+    need one."""
+    from clustertracking_tpu_torch import refine as refine_mod
+    from clustertracking_tpu_torch.refine import _bucket_solver, _shard_solver
+
+    con, lay, model, args, frame_shape, config, pose0 = _refit_scene(
+        "shifted", 16, 20)
+    route = _shard_solver(*config, "kernel")[3](torch.device("cpu"))
+    assert route.taken == "fused" and route.refit is None
+    assert route.span_args == {"route": "fused"}
+    counted = _counting(refine_mod.fused_lm_2d)
+    monkeypatch.setattr(refine_mod, "fused_lm_2d", counted)
+    solve, _ = _bucket_solver(*config, "kernel")
+    vect0, p0, frames, fidx, norm, valid = args
+    solve(frames, fidx, p0, _t(pose0), valid)
+    assert len(counted.lanes) >= 2
+    assert torch.equal(counted.lanes[0], valid)
+    assert 0 < int(counted.lanes[1].sum()) < int(valid.sum())
+
+
+def test_refit_wrapper_refuses_mixed_positions():
+    """``rounds`` and ``pos_at`` / ``origin`` exclude each other, and the
+    loop takes at least one round."""
+    args, kw = _kernel_args()
+    with pytest.raises(ValueError, match="pos_at and origin as None"):
+        check_kernel_args(*args, rounds=3, **kw)
+    none = list(args)
+    none[4] = none[5] = None
+    with pytest.raises(ValueError, match="needs pos_at and origin"):
+        check_kernel_args(*none, **kw)
+    with pytest.raises(ValueError, match="at least 1"):
+        check_kernel_args(*none, rounds=0, **kw)
+    check_kernel_args(*none, rounds=1, **kw)
+
+
+@pytest.mark.parametrize("kind", ["shifted", "ngon_dimer", "disc"])
+def test_plain_refit_loop_is_the_bucket_solvers_host_loop(kind):
+    """``fused_lm_2d_reference(rounds=...)`` (``refit_on_host`` around the
+    plain single solve) gives the bucket solver's results on the CPU bit
+    for bit: params, rms, converged and iterations of every lane, the
+    padding lanes at their start with rms inf."""
+    from clustertracking_tpu_torch.ops.rigid import make_constrained_fns
+    from clustertracking_tpu_torch.refine import _bucket_solver
+
+    con, lay, model, args, frame_shape, config, pose0 = _refit_scene(
+        kind, 12, 20)
+    vect0, p0, frames, fidx, norm, valid = args
+    solve, _ = _bucket_solver(*config, "kernel")
+    params, rms, conv, iters, _ = solve(frames, fidx, p0, _t(pose0), valid)
+    kw = _refit_kw(con, lay, model, frame_shape, config, "cpu")
+    res = fused_lm_2d_reference(vect0, p0, frames, fidx, None, None, norm,
+                                valid, None, rounds=config[10],
+                                max_shift=config[11], **kw)
+    got = (lay.vect_to_params(res.x, p0) if con is None else
+           make_constrained_fns(model, lay, config[5], con).params_of(
+               res.x, p0))
+    np.testing.assert_array_equal(got.numpy(), params.numpy())
+    np.testing.assert_array_equal(res.rms.numpy(), rms.numpy())
+    np.testing.assert_array_equal(res.converged.numpy(), conv.numpy())
+    np.testing.assert_array_equal(res.n_iter.numpy(), iters.numpy())
+    v = valid.numpy()
+    assert np.isinf(res.rms.numpy()[~v]).all()
+    np.testing.assert_array_equal(res.x.numpy()[~v], vect0.numpy()[~v])
+    assert (res.n_iter.numpy()[v] > 0).all()
+    # the wrapper on CPU tensors is the plain version
+    out = fused_lm_2d(vect0, p0, frames, fidx, None, None, norm, valid,
+                      None, rounds=config[10], max_shift=config[11], **kw)
+    for a, b in zip(out, res):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _on_card(args):
+    return [a.to("cuda") for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dimer2d", "shifted", "ngon_dimer",
+                                  "ngon_trimer", "disc"])
+def test_kernel_refit_loop_matches_the_host_loop_on_the_card(kind):
+    """The kernel's refit loop (``rounds``) against the host loop over the
+    same kernel's single solve (``refit_on_host``), 60 LM iterations, 10
+    rounds.  Unconstrained lanes: x, rms, converged and the summed
+    iterations bit-equal (so each lane ran the same rounds: every solved
+    round adds at least one iteration to a sum of bit-equal rounds).
+    Rigid lanes, whose positions the kernel takes from its own pose map:
+    pose 1e-3, rms 1e-3 relative and converged on ≥ 99.9% of lanes, as
+    test_torch_rigid_lm.py holds the rigid kernel to its plain version.
+    The device counter moves by the host loop's rounds past the first;
+    the launch counts one looped launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from clustertracking_tpu_torch.diagnostics import refit_rounds
+    from clustertracking_tpu_torch.ops.fused_lm import refit_on_host
+
+    con, lay, model, args, frame_shape, config, _ = _refit_scene(
+        kind, 2048, 60)
+    vect0, p0, frames, fidx, norm, valid = _on_card(args)
+    kw = _refit_kw(con, lay, model, frame_shape, config, "cuda")
+    rounds, max_shift = config[10], config[11]
+    counted = _counting(fused_lm_2d)
+    host = refit_on_host(counted, vect0, p0, frames, fidx, norm, valid,
+                         None, rounds=rounds, max_shift=max_shift, **kw)
+    torch.cuda.synchronize()
+    past_first = sum(int(lanes.sum()) for lanes in counted.lanes[1:])
+    before = (refit_rounds(), fused_lm_2d.launches,
+              fused_lm_2d.launches_looped)
+    res = fused_lm_2d(vect0, p0, frames, fidx, None, None, norm, valid,
+                      None, rounds=rounds, max_shift=max_shift, **kw)
+    after = (refit_rounds(), fused_lm_2d.launches,
+             fused_lm_2d.launches_looped)
+    assert after[0] - before[0] == past_first
+    assert after[1:] == (before[1] + 1, before[2] + 1)
+    if kind != "dimer2d":
+        assert past_first > 0
+    if kind == "shifted":
+        assert len(counted.lanes) >= 3
+    xk, xh = res.x.cpu().numpy(), host.x.cpu().numpy()
+    if con is None:
+        np.testing.assert_array_equal(xk, xh)
+        np.testing.assert_array_equal(res.rms.cpu().numpy(),
+                                      host.rms.cpu().numpy())
+        np.testing.assert_array_equal(res.converged.cpu().numpy(),
+                                      host.converged.cpu().numpy())
+        np.testing.assert_array_equal(res.n_iter.cpu().numpy(),
+                                      host.n_iter.cpu().numpy())
+        np.testing.assert_array_equal(res.npix.cpu().numpy(),
+                                      host.npix.cpu().numpy())
+        np.testing.assert_array_equal(res.cost.cpu().numpy(),
+                                      host.cost.cpu().numpy())
+    else:
+        Qt = 3
+        np.testing.assert_allclose(xk[:, :Qt], xh[:, :Qt], atol=1e-3,
+                                   rtol=0)
+        np.testing.assert_allclose(res.rms.cpu().numpy(),
+                                   host.rms.cpu().numpy(), rtol=1e-3)
+        assert np.mean(res.converged.cpu().numpy()
+                       == host.converged.cpu().numpy()) >= 0.999
+    v = valid.cpu().numpy()
+    assert np.isinf(res.rms.cpu().numpy()[~v]).all()
+    np.testing.assert_array_equal(xk[~v], vect0.cpu().numpy()[~v])
+    print(f"[{kind}] rounds past the first: {past_first} over "
+          f"{int(v.sum())} lanes (device counter "
+          f"{after[0] - before[0]}), host loop {len(counted.lanes)} "
+          "launches")
+
+
+@pytest.mark.cuda
+def test_a_fused_bucket_solve_makes_no_host_sync_on_the_card(monkeypatch):
+    """A warm call of ``entry(device)``'s solver and a warm fused bucket of
+    ``refine_leastsq`` run under ``torch.cuda.set_sync_debug_mode
+    ("error")``, which raises at any PyTorch operation that waits for the
+    device (a blocking host-to-device copy, a read to the host): neither
+    raises.  A warm gathered-route call (``entry_3d``) raises, at its
+    refit loop's round check only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import traceback
+
+    import pandas as pd
+
+    from clustertracking_tpu_torch import refine as refine_mod
+    from clustertracking_tpu_torch import refine_leastsq
+    from clustertracking_tpu_torch.entry import entry, entry_3d
+
+    def strict(fn, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    solve, args = entry("cuda", B=512, frame_size=128)
+    solve(*args)
+    torch.cuda.synchronize()
+    out = strict(solve, *args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[1]).all()
+
+    solved = []
+    real = refine_mod._bucket_solver
+
+    def checked(*a, **k):
+        inner, layout = real(*a, **k)
+
+        def call(*args):
+            solved.append(1)
+            return strict(inner, *args)
+        return call, layout
+
+    frames, fidx, params0, _, _ = example_batch(B=64, frame_size=128)
+    rows = [{"frame": int(fidx[b]), "y": float(p[2]), "x": float(p[3]),
+             "signal": 150.0} for b in range(64) for p in params0[b]]
+    f = pd.DataFrame(rows)
+    kw = dict(diameter=9, separation=6.0, device="cuda")
+    refine_leastsq(f, frames, **kw)
+    monkeypatch.setattr(refine_mod, "_bucket_solver", checked)
+    out = refine_leastsq(f, frames, **kw)
+    assert solved and out["cost"].notna().all()
+
+    solve3, args3 = entry_3d("cuda", B=64, shape=(16, 48, 48))
+    solve3(*args3)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError) as info:
+        strict(solve3, *args3)
+    frames_in = [fr for fr in traceback.extract_tb(info.value.__traceback__)
+                 if fr.filename.endswith("refine.py")]
+    assert frames_in and ".any()" in frames_in[-1].line
