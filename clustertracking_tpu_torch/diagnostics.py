@@ -5,8 +5,8 @@ stage of the fit as a ``torch.profiler.record_function`` range while a
 profiler runs, and costs one flag check when none does; ``trace_to``
 records such a trace of a block into a directory; ``collect`` gathers one
 ``BatchRecord`` per solver dispatch of ``refine_leastsq`` and, from
-``track``, the pipeline loss ledger (per-stage feature counts and stage
-wall clocks).
+``track``, the pipeline loss ledger (per-stage feature counts, stage
+wall clocks and, after a device auction, its rounds and host syncs).
 
 The ranges ``refine_leastsq`` opens (fixed names; sizes, indices and
 routes go in the range's ``args``, never in its name; each range's parent
@@ -44,6 +44,19 @@ caller's):
   nothing (``compute_error``'s gather stays in ``solver.finish``);
 - ``solver.finish``: every shard's outputs (with ``compute_error``'s
   std), and the bucket's results packed for one copy to the host.
+
+``track`` opens four ranges around its stages, once in a single-shot
+run and once a chunk in a checkpointed one; ``refine.*`` and
+``solver.*`` nest inside ``track.refine``:
+
+- ``track.locate`` (``args`` frames): the candidates of the frames
+  (``_locate_frames``: the frames read and stacked onto the device, the
+  threshold statistics, the maxima, the sizes, the table);
+- ``track.find`` (``args`` features): ``find_clusters`` on them;
+- ``track.refine``: ``refine_leastsq`` and the recovery passes;
+- ``track.link`` (``args`` the backend asked for and the features): the
+  linking of the accepted rows (a device auction or the host
+  ``Linker``).
 
 The ``solver.*`` ranges come from the bucket solver itself, so a caller
 of ``entry.entry``'s solver sees them too; on a mesh ``solver.setup``

@@ -372,7 +372,9 @@ def track(
     Under ``diagnostics.collect()`` the loss ledger counts each stage's
     features and keeps the stage walls (``locate_s``, ``find_s``,
     ``fit_s`` with the recovery passes in it, ``link_s``), the resolved
-    ``link_backend``, and each recovery stage's counts and walls
+    ``link_backend``, after a device auction its rounds and host syncs
+    over the frames (``link_rounds``, ``link_syncs``), and each recovery
+    stage's counts and walls
     (``residual_candidates``, ``recovered_candidates``, the per-gate
     drops and prunes, ``recovery_*_s``).
 
@@ -476,19 +478,23 @@ def track(
             refine_kwargs, locate_kw, recover_kw,
         )
     t0 = time.perf_counter()
-    f = _locate_frames(
-        reader, range(n_frames), diameter, locate_separation, threshold,
-        percentile, max_features, t_column, **locate_kw,
-    )
+    with diagnostics.stage("track.locate", {"frames": n_frames}):
+        f = _locate_frames(
+            reader, range(n_frames), diameter, locate_separation, threshold,
+            percentile, max_features, t_column, **locate_kw,
+        )
     t1 = time.perf_counter()
-    f = find_clusters(f, sep, t_column=t_column, backend=find_backend,
-                      device=device)
+    with diagnostics.stage("track.find", {"features": len(f)}):
+        f = find_clusters(f, sep, t_column=t_column, backend=find_backend,
+                          device=device)
     t2 = time.perf_counter()
-    f, n_spill = _refine_with_recovery(
-        f, reader, diameter, sep, range(n_frames), locate_separation,
-        threshold, percentile, max_features, find_backend, t_column,
-        default_pos_columns(ndim0), refine_kwargs, locate_kw, **recover_kw,
-    )
+    with diagnostics.stage("track.refine"):
+        f, n_spill = _refine_with_recovery(
+            f, reader, diameter, sep, range(n_frames), locate_separation,
+            threshold, percentile, max_features, find_backend, t_column,
+            default_pos_columns(ndim0), refine_kwargs, locate_kw,
+            **recover_kw,
+        )
     t3 = time.perf_counter()
     ok = f["cost"].notna()
     # loss ledger: every feature between locate and the linked output is
@@ -504,11 +510,13 @@ def track(
     )
     f = f[ok].reset_index(drop=True)
     t4 = time.perf_counter()
-    out = _link(
-        f, search_range, memory=memory, t_column=t_column,
-        backend=link_backend if link_backend is not None else "auto",
-        mesh=mesh, device=device,
-    )
+    backend = link_backend if link_backend is not None else "auto"
+    with diagnostics.stage("track.link",
+                           {"backend": backend, "features": len(f)}):
+        out = _link(f, search_range, memory=memory, t_column=t_column,
+                    backend=backend, mesh=mesh, device=device)
+    if len(f):  # an empty table runs no auction: last_stats is older
+        _record_auction(out.attrs.get("link_backend"))
     diagnostics.record_ledger(
         linked=len(out),
         locate_s=round(t1 - t0, 4),
@@ -518,6 +526,20 @@ def track(
         link_backend=out.attrs.get("link_backend", "?"),
     )
     return out
+
+
+def _record_auction(backend):
+    """After a device auction (``link`` on one device, dense or binned):
+    its rounds and host syncs over every frame, from the linker's
+    ``last_stats``, as the ledger's ``link_rounds`` and ``link_syncs``."""
+    from .ops.link import link_on_device, link_on_device_binned
+
+    linker = {"device": link_on_device,
+              "device-binned": link_on_device_binned}.get(backend)
+    stats = linker.last_stats if linker is not None else None
+    if stats is not None:
+        diagnostics.record_ledger(link_rounds=sum(stats["rounds"]),
+                                  link_syncs=sum(stats["syncs"]))
 
 
 def _gate_arg(value, default):
@@ -1361,19 +1383,22 @@ def _track_checkpointed(
         chunk = range(
             chunk_start, min(chunk_start + checkpoint_every, n_frames)
         )
-        f = _locate_frames(
-            reader, chunk, diameter, locate_separation, threshold,
-            percentile, max_features, t_column, **locate_kw,
-        )
-        if len(f):
-            f = find_clusters(f, sep, t_column=t_column,
-                              backend=find_backend, device=device)
-            f, _ = _refine_with_recovery(
-                f, reader, diameter, sep, chunk, locate_separation,
-                threshold, percentile, max_features, find_backend,
-                t_column, pos_columns, refine_kwargs, locate_kw,
-                **recover_kw,
+        with diagnostics.stage("track.locate", {"frames": len(chunk)}):
+            f = _locate_frames(
+                reader, chunk, diameter, locate_separation, threshold,
+                percentile, max_features, t_column, **locate_kw,
             )
+        if len(f):
+            with diagnostics.stage("track.find", {"features": len(f)}):
+                f = find_clusters(f, sep, t_column=t_column,
+                                  backend=find_backend, device=device)
+            with diagnostics.stage("track.refine"):
+                f, _ = _refine_with_recovery(
+                    f, reader, diameter, sep, chunk, locate_separation,
+                    threshold, percentile, max_features, find_backend,
+                    t_column, pos_columns, refine_kwargs, locate_kw,
+                    **recover_kw,
+                )
             # cluster ids restart at 0 in every chunk (and the recovery
             # passes renumber them): renumber past the previous chunks'
             _, inv = np.unique(
@@ -1383,10 +1408,13 @@ def _track_checkpointed(
             cluster_offset = int(f["cluster"].max()) + 1
             f = f[f["cost"].notna()].reset_index(drop=True)
             particle = np.full(len(f), -1, dtype=np.int64)
-            for t, idx in f.groupby(t_column, sort=True).indices.items():
-                particle[idx] = linker.advance(
-                    int(t), f.iloc[idx][pos_columns].to_numpy(dtype=float)
-                )
+            with diagnostics.stage("track.link",
+                                   {"backend": "host", "features": len(f)}):
+                for t, idx in f.groupby(t_column,
+                                        sort=True).indices.items():
+                    particle[idx] = linker.advance(
+                        int(t),
+                        f.iloc[idx][pos_columns].to_numpy(dtype=float))
             f["particle"] = particle
             results = pd.concat([results, f], ignore_index=True)
 

@@ -344,6 +344,109 @@ def test_scipy_spill_records_its_solve_time():
     assert all(b.launches == {} for b in spill)
 
 
+TRACK_SPANS = ("track.locate", "track.find", "track.refine", "track.link")
+
+
+class _Video:
+    """Four 96² frames of three dimers and a single, drifting by 0.3 px a
+    frame, with read noise of σ 2."""
+
+    def __init__(self, n_frames=4):
+        rng = np.random.default_rng(3)
+        self.frames = []
+        for t in range(n_frames):
+            img = np.zeros((96, 96))
+            for center, n in [((25, 25), 2), ((25, 70), 2), ((70, 30), 2),
+                              ((70, 70), 1)]:
+                artificial.draw_cluster(
+                    img, (center[0] + 0.3 * t, center[1] - 0.2 * t),
+                    size=1.6, separation=5.0, n=n, signal=150.0,
+                    angle=0.5 + 0.05 * t)
+            self.frames.append(img + rng.normal(0.0, 2.0, img.shape))
+
+    def __getitem__(self, t):
+        return self.frames[t]
+
+    def __len__(self):
+        return len(self.frames)
+
+
+TRACK_KW = dict(diameter=9, separation=6, search_range=3.0, memory=1,
+                device="cpu")
+
+
+def _traced_track(**kw):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = ctt.track(_Video(), **{**TRACK_KW, **kw})
+    return out, _ranges(prof)
+
+
+def test_track_opens_its_four_spans_in_order():
+    """A single-shot ``track`` opens ``track.locate``, ``track.find``,
+    ``track.refine`` and ``track.link`` once each, one after another in
+    that order; every ``refine.*`` and ``solver.*`` range lies inside
+    ``track.refine`` (``refine.find`` stays shut: the table comes with
+    its clusters from ``track.find``)."""
+    out, ranges = _traced_track(link_backend="device")
+    assert len(out)
+    stages = sorted((r for r in ranges if r[0] in TRACK_SPANS),
+                    key=lambda r: r[1])
+    assert [r[0] for r in stages] == list(TRACK_SPANS)
+    for a, b in zip(stages, stages[1:]):
+        assert a[2] <= b[1]
+    refine_range = stages[2]
+    inner = [r for r in ranges if r[0] in SPANS]
+    assert {r[0] for r in inner} == SPANS - {"refine.find"}
+    for r in inner:
+        assert _inside(r, refine_range), r
+
+
+def test_track_span_args_carry_the_sizes(monkeypatch):
+    """The ranges' ``args``: the frames located, the features found, the
+    link backend asked for and the features linked; ``track.refine`` has
+    none."""
+    opened = _recording(monkeypatch)
+    out = ctt.track(_Video(), link_backend="device", **TRACK_KW)
+    by = {name: args for name, args in opened if name in TRACK_SPANS}
+    assert by["track.locate"] == "frames=4"
+    assert by["track.find"] == f"features={len(out)}"
+    assert by["track.refine"] is None
+    assert by["track.link"] == f"backend=device features={len(out)}"
+
+
+def test_checkpointed_track_opens_the_spans_once_a_chunk(tmp_path):
+    """``checkpoint_dir`` with two frames a chunk: each of the four ranges
+    opens once a chunk, in order within the chunk, the link's with the
+    host ``Linker``."""
+    _, ranges = _traced_track(checkpoint_dir=str(tmp_path),
+                              checkpoint_every=2)
+    stages = sorted((r for r in ranges if r[0] in TRACK_SPANS),
+                    key=lambda r: r[1])
+    assert [r[0] for r in stages] == list(TRACK_SPANS) * 2
+
+
+@pytest.mark.parametrize("backend", ["device", "device-binned", "host"])
+def test_track_ledger_counts_the_auction(backend):
+    """After a device auction, dense or binned, the ledger holds its rounds
+    and host syncs summed over the frames (the linker's ``last_stats``);
+    the host ``Linker`` runs no auction and adds neither."""
+    from clustertracking_tpu_torch.ops.link import (
+        link_on_device, link_on_device_binned)
+
+    with diagnostics.collect() as stats:
+        ctt.track(_Video(), link_backend=backend, **TRACK_KW)
+    led = stats.ledger
+    assert led["link_backend"] == backend
+    if backend == "host":
+        assert "link_rounds" not in led and "link_syncs" not in led
+        return
+    last = (link_on_device if backend == "device"
+            else link_on_device_binned).last_stats
+    assert last["frames"] == 4
+    assert led["link_rounds"] == sum(last["rounds"]) >= 4
+    assert led["link_syncs"] == sum(last["syncs"]) >= 1
+
+
 # -------------------------------------------------------------------- card
 
 @pytest.mark.cuda

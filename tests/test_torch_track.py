@@ -160,9 +160,17 @@ def test_track_matches_reference(T, link_backend):
     assert out["particle"].dtype == ref["particle"].dtype
     assert out.attrs["link_backend"] == ref.attrs["link_backend"]
     walls = ("locate_s", "find_s", "fit_s", "link_s")
-    assert ({k: v for k, v in s_out.ledger.items() if k not in walls}
+    # the device auction's rounds and host syncs: the port's own counts
+    auction = ("link_rounds", "link_syncs")
+    assert ({k: v for k, v in s_out.ledger.items()
+             if k not in walls + auction}
             == {k: v for k, v in s_ref.ledger.items() if k not in walls})
     assert all(s_out.ledger[k] >= 0 for k in walls)
+    if link_backend == "host":
+        assert not set(auction) & set(s_out.ledger)
+    else:
+        assert s_out.ledger["link_rounds"] >= T
+        assert s_out.ledger["link_syncs"] >= 1
     assert out["particle"].nunique() == 6
     assert (out.groupby("particle").size() == T).all()
     _truth_close(out, truth, 0.01)
