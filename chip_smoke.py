@@ -226,7 +226,7 @@ GATHER_REPS = 20
 STREAM_WINDOW = (161, 161)
 STREAM_RADIUS = (6.5, 6.5)
 KERNELS = ("fused_lm_2d", "window_gather", "pixel_lm", "block_lm",
-           "tied_lm")
+           "tied_lm", "link_auction")
 # The rigid cells' geometry: bond lengths and edges as exact as float32
 # positions of a few hundred px allow (2D and 3D dimers, trimers), and the
 # tetramer's edges through the rotation vector to 1e-3 px.
@@ -307,6 +307,10 @@ ACCEPT_KEYS = ("refit_failures_restored", "ghosts_pruned",
                "recovery_rejected_likelihood", "recovery_pruned_zero_signal",
                "recovery_pruned_low_signal", "recovery_pruned_displacement",
                "recovery_pruned_duplicate")
+# the device auction's ledger keys: compared route against route
+# (_auction_ledgers_agree), not as equal counts
+AUCTION_KEYS = ("link_rounds", "link_syncs")
+LINK_BIG_SEED = 2048
 TRACK5R_COVERAGE = 0.936
 TRACK5R_GHOSTS = 0.013    # share of the outputs
 TRACK5R_ERR = 0.095
@@ -417,10 +421,12 @@ def phase_build():
         # (D, streamed, profile, pose, slot ceiling; fused_lm_2d: profile,
         # pose, slot ceiling) = registers/warps per SM that they allow
         # window_gather and block_lm (D, profile): 256 threads per block
-        # (kThreads in the .cu); tied_lm (D, profile, pose, slot ceiling):
+        # (kThreads in the .cu); link_auction (D): one block of 1,024
+        # threads; tied_lm (D, profile, pose, slot ceiling):
         # its CTA's warps by the ceiling (ops/tied_lm.py's CTA_WARPS)
         entries = _ptxas_entries(report)
-        wpb = {"window_gather": 8, "block_lm": 8}.get(name, 1)
+        wpb = {"window_gather": 8, "block_lm": 8,
+               "link_auction": 32}.get(name, 1)
         regs = " ".join(
             ",".join(_template_args(e))
             + f"={r}/{_warps_by_registers(r, _cta_warps(name, e, wpb))}"
@@ -954,10 +960,12 @@ def phase_kernel3d(batch, big, device, smi):
 def _reset_counts():
     from clustertracking_tpu_torch.ops.block_lm import block_lm
     from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
+    from clustertracking_tpu_torch.ops.link import link_on_device
     from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
     from clustertracking_tpu_torch.ops.tied_lm import tied_lm
     from clustertracking_tpu_torch.ops.window_gather import window_gather
 
+    link_on_device.launches_kernel = 0
     block_lm.launches = 0
     tied_lm.launches = 0
     fused_lm_2d.launches = 0
@@ -969,6 +977,7 @@ def _reset_counts():
 def _counts():
     from clustertracking_tpu_torch.ops.block_lm import block_lm
     from clustertracking_tpu_torch.ops.fused_lm import fused_lm_2d
+    from clustertracking_tpu_torch.ops.link import link_on_device
     from clustertracking_tpu_torch.ops.pixel_lm import pixel_lm
     from clustertracking_tpu_torch.ops.tied_lm import tied_lm
     from clustertracking_tpu_torch.ops.window_gather import window_gather
@@ -977,7 +986,8 @@ def _counts():
                 window_gather=window_gather.launches,
                 resident=pixel_lm.launches_resident,
                 streamed=pixel_lm.launches_streamed,
-                block_lm=block_lm.launches, tied_lm=tied_lm.launches)
+                block_lm=block_lm.launches, tied_lm=tied_lm.launches,
+                link_auction=link_on_device.launches_kernel)
 
 
 def phase_main3d(batch, device, smi):
@@ -2779,7 +2789,8 @@ def _linker_stats(backend):
 
     st = (link_on_device if backend == "device"
           else link_on_device_binned).last_stats
-    return (f"rounds per frame mean {np.mean(st['rounds']):.2f} max "
+    route = f"route {st['route']}, " if "route" in st else ""
+    return (f"{route}rounds per frame mean {np.mean(st['rounds']):.2f} max "
             f"{max(st['rounds'])}, host syncs per frame mean "
             f"{np.mean(st['syncs']):.2f} max {max(st['syncs'])}")
 
@@ -2791,6 +2802,7 @@ def phase_link(c2_truth, c5_truth, device, smi):
     import torch
 
     from clustertracking_tpu_torch import link
+    from clustertracking_tpu_torch.ops.link import link_on_device
 
     t_phase = time.perf_counter()
     scenes = (("config 2", c2_truth, 6, "device"),
@@ -2813,6 +2825,11 @@ def phase_link(c2_truth, c5_truth, device, smi):
         host, host_ms = timed(f, backend="host")
         card, card_ms = timed(f, backend=want, device=device)
         card_stats = _linker_stats(want)
+        if want == "device":
+            st = link_on_device.last_stats
+            check(st["route"] == "kernel" and not any(st["syncs"]),
+                  f"{name}: the dense auction on the card took route "
+                  f"{st['route']}, syncs {sum(st['syncs'])}")
         cpu = link(f, 3.0, backend=want, device="cpu", **kw)
         check(np.array_equal(card["particle"].to_numpy(),
                              cpu["particle"].to_numpy()),
@@ -2846,8 +2863,87 @@ def phase_link(c2_truth, c5_truth, device, smi):
             check(same >= LINK_AGREE * len(f),
                   f"{name}: {len(f) - same} rows in trajectories that differ "
                   "from the host Linker's")
+    entry = _link_kernel_cell(c2_truth, 6, device, smi)
     print(f"[link] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return entry
+
+
+def _link_kernel_cell(truth, memory, device, smi):
+    """link_auction on config 2's truth rows (search range 3) against
+    ``_link_torch`` on the same CUDA tensors: particles equal, the kernel
+    alone and a whole call timed against the loop, and the bound of the
+    work every run of it does: each valid feature's candidate scan over
+    the M slots (3D − 1 operations a slot) and the video's bytes."""
+    import torch
+
+    from clustertracking_tpu_torch.link import _pad_frames
+    from clustertracking_tpu_torch.ops.link import (
+        _library, _link_torch, link_on_device)
+
+    pos, valid, _ = _pad_frames(truth[["frame", "y", "x"]], ["y", "x"],
+                                "frame")
+    pos = torch.as_tensor(pos, device=device)
+    valid = torch.as_tensor(valid, device=device)
+    T, K, D = pos.shape
+    M = K * (memory + 2)
+    got = link_on_device(pos, valid, 3.0, memory)
+    st = dict(link_on_device.last_stats)
+    want = _link_torch(pos, valid, 3.0, memory)
+    loop = link_on_device.last_stats
+    err = int((got.long() - want.long()).abs().max())
+    ms = _cuda_ms(lambda: link_on_device(pos, valid, 3.0, memory), 10)
+    kernel_ms = _kernel_alone_ms(lambda: link_on_device(pos, valid, 3.0,
+                                                        memory),
+                                 10, cold=False, name="link_auction_kernel")
+    plain_ms = _cuda_ms(lambda: _link_torch(pos, valid, 3.0, memory), 2)
+    n_valid = int(valid.sum())
+    bound = _bound(T * K * (4 * D + 1 + 4) + 4 * T,
+                   n_valid * M * (3 * D - 1))
+    print(f"[link] {smi}: link_auction on config 2, {T} frames x {K} "
+          f"features, M {M}, state in {st['state']} memory: max |particle "
+          f"- loop's| {err}, rounds {sum(st['rounds'])} (loop "
+          f"{sum(loop['rounds'])}, syncs {sum(loop['syncs'])}); kernel "
+          f"alone {kernel_ms:.3f} ms, per call {ms:.3f} ms, torch loop "
+          f"{plain_ms:.3f} ms per call; bound {bound['bound_ms']:.5f} ms "
+          f"({bound['bound_by']}; time over bound "
+          f"{kernel_ms / bound['bound_ms']:.0f}x: one block on one SM, "
+          f"frames and rounds in sequence)", flush=True)
+    check(st["route"] == "kernel", f"link_auction: route {st['route']}")
+    check(err == 0, "link_auction's particles differ from the torch loop's")
+
+    # the state's edge at memory 6, and 'auto's largest dense video (2,048
+    # features, 16,384 slots in the global workspace): 10 frames of
+    # walkers at ~2 a search range²
+    lib = _library()
+    lo, hi = 1, 4096
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = ((mid, hi) if lib.link_auction_workspace_bytes(mid, 2, 6)
+                  == 0 else (lo, mid))
+    rng = np.random.default_rng(LINK_BIG_SEED)
+    Kb, Tb = 2048, 10
+    big = torch.as_tensor((rng.uniform(0, 3.0 * np.sqrt(Kb / 2.0),
+                                       (1, Kb, 2))
+                           + np.cumsum(rng.normal(0, 1.0, (Tb, Kb, 2)),
+                                       axis=0)).astype(np.float32),
+                          device=device)
+    big_ok = torch.as_tensor(rng.uniform(size=(Tb, Kb)) >= 0.1,
+                             device=device)
+    got = link_on_device(big, big_ok, 3.0, 6)
+    big_st = dict(link_on_device.last_stats)
+    big_eq = torch.equal(got, _link_torch(big, big_ok, 3.0, 6))
+    big_ms = _cuda_ms(lambda: link_on_device(big, big_ok, 3.0, 6), 2)
+    big_plain = _cuda_ms(lambda: _link_torch(big, big_ok, 3.0, 6), 1)
+    print(f"[link] {smi}: link_auction keeps the state in shared memory up "
+          f"to K = {lo} at memory 6; at K = {Kb}, memory 6 ({Tb} frames, "
+          f"state in {big_st['state']} memory, rounds "
+          f"{sum(big_st['rounds'])}): {big_ms:.2f} ms per call, torch loop "
+          f"{big_plain:.2f} ms, particles equal: {big_eq}", flush=True)
+    check(big_st["state"] == "global" and big_eq,
+          "link_auction at K = 2,048 differs from the torch loop")
+    return dict(max_abs_err=float(err), ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, **bound, library_ms=None)
 
 
 def _track_accuracy(out, truth):
@@ -2934,6 +3030,7 @@ def phase_track(frames, truth, device, smi):
     import torch
 
     from clustertracking_tpu_torch import diagnostics, motion, track
+    from clustertracking_tpu_torch.ops.link import link_on_device
 
     t_phase = time.perf_counter()
     reader = _Stack(frames)
@@ -2947,6 +3044,7 @@ def phase_track(frames, truth, device, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = _counts()
+    link_st = link_on_device.last_stats
     err, recall, pair_err = _track_accuracy(out, truth)
     lengths = out.groupby("particle").size()
     est = motion.diffusion_constants(out)
@@ -2963,6 +3061,10 @@ def phase_track(frames, truth, device, smi):
           f"gated)", flush=True)
     check(out.attrs["link_backend"] == "device",
           f"track linked with {out.attrs['link_backend']}")
+    check(n["link_auction"] == 1 and link_st["route"] == "kernel"
+          and not any(link_st["syncs"]),
+          f"track's link: {n['link_auction']} link_auction launches, route "
+          f"{link_st['route']}, syncs {sum(link_st['syncs'])}")
     check(n["fused_lm_2d"] > 0, "track launched no fused_lm_2d")
     check(err < TRACK_ERR, f"track median position error {err} px")
     check(recall >= TRACK_RECALL, f"track recall {recall}")
@@ -3004,7 +3106,7 @@ def phase_track(frames, truth, device, smi):
     entry = _replay(first, "track", smi)
     print(f"[track] {smi}: phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return dict(launches=n["fused_lm_2d"], **entry)
+    return dict(launches=n["fused_lm_2d"], **entry), n["link_auction"]
 
 
 def phase_track5(frames, truth, device, smi):
@@ -3097,6 +3199,34 @@ def _recovery_score(out, truth, n_frames):
 def _ledger_counts(stats):
     """The ledger's counts (its stage walls, the ``*_s`` keys, left out)."""
     return {k: v for k, v in stats.ledger.items() if not k.endswith("_s")}
+
+
+def _auction_ledgers_agree(led_card, led_cpu, st_card, st_cpu):
+    """The device auction's ledger keys of one track call on the card
+    (the kernel: each frame's exact rounds, no host sync) and on the CPU
+    (the torch loop: rounds up to a check point, a sync at each check
+    point read): each ledger holds its own call's sums, the card synced
+    never, and each frame's loop rounds are the first check point at or
+    past the kernel's."""
+    from clustertracking_tpu_torch.ops.link import _check_points
+
+    check(st_card["route"] == "kernel" and st_cpu["route"] == "torch",
+          f"auction routes {st_card['route']} on the card, "
+          f"{st_cpu['route']} on the CPU")
+    for led, st, where in ((led_card, st_card, "card"),
+                           (led_cpu, st_cpu, "CPU")):
+        check(led.get("link_rounds") == sum(st["rounds"])
+              and led.get("link_syncs") == sum(st["syncs"]),
+              f"the {where}'s ledger {led.get('link_rounds')} rounds, "
+              f"{led.get('link_syncs')} syncs against its auction's "
+              f"{sum(st['rounds'])}, {sum(st['syncs'])}")
+    check(led_card["link_syncs"] == 0,
+          f"the kernel route synced {led_card['link_syncs']} times")
+    pts = _check_points(64)
+    check(st_cpu["rounds"] == [next(c for c in pts if c >= r)
+                               for r in st_card["rounds"]],
+          f"per-frame rounds: loop {st_cpu['rounds']} against kernel "
+          f"{st_card['rounds']}")
 
 
 def _walls(stats):
@@ -3226,6 +3356,7 @@ def phase_track_r(frames, truth, device, smi):
     import torch
 
     from clustertracking_tpu_torch import diagnostics, track
+    from clustertracking_tpu_torch.ops.link import link_on_device
 
     t_phase = time.perf_counter()
     reader = _Stack(frames)
@@ -3272,10 +3403,12 @@ def phase_track_r(frames, truth, device, smi):
     few = _Stack(frames[:TRACK_CPU_FRAMES])
     with diagnostics.collect() as s_card:
         on_card = track(few, device=device, **kw)
+    st_card = link_on_device.last_stats
     t0 = time.perf_counter()
     with diagnostics.collect() as s_cpu:
         on_cpu = track(few, device="cpu", **kw)
     cpu_s = time.perf_counter() - t0
+    st_cpu = link_on_device.last_stats
     d_ok, d_cap, rel_cap, n_cap = _same_tracks(
         on_card, on_cpu, TRACK_POS_ATOL, capped_by_decisions=True)
     # the counts up to the refit, and the rows kept, are held equal; the
@@ -3283,10 +3416,12 @@ def phase_track_r(frames, truth, device, smi):
     # against its thresholds, so a capped lane near one (0.9 × the old
     # rms, the signal floors) can fall to another gate: reported
     led_card, led_cpu = _ledger_counts(s_card), _ledger_counts(s_cpu)
-    pre = {k: v for k, v in led_card.items() if k not in ACCEPT_KEYS}
-    check(pre == {k: v for k, v in led_cpu.items() if k not in ACCEPT_KEYS},
+    skip = ACCEPT_KEYS + AUCTION_KEYS
+    pre = {k: v for k, v in led_card.items() if k not in skip}
+    check(pre == {k: v for k, v in led_cpu.items() if k not in skip},
           f"ledgers differ before the accept stage: {led_card} against "
           f"{led_cpu}")
+    _auction_ledgers_agree(led_card, led_cpu, st_card, st_cpu)
     moved = {k: (led_card.get(k, 0), led_cpu.get(k, 0)) for k in ACCEPT_KEYS
              if led_card.get(k, 0) != led_cpu.get(k, 0)}
     print(f"[track_r] {smi}: the first {TRACK_CPU_FRAMES} frames with "
@@ -3974,9 +4109,9 @@ def main():
     _stamp("config 5 scene")
     phase_find(c5_cands[["y", "x"]].to_numpy(dtype=float), device, smi)
     _stamp("find")
-    phase_link(truth, c5_truth, device, smi)
+    klink = phase_link(truth, c5_truth, device, smi)
     _stamp("link")
-    ktr = phase_track(frames, truth, device, smi)
+    ktr, link_launches = phase_track(frames, truth, device, smi)
     _stamp("track")
     ktr5, gtr5, btr5 = phase_track5(c5_frames, c5_truth, device, smi)
     _stamp("track5")
@@ -4089,6 +4224,14 @@ def main():
             name=f"block_lm [{what}]", route="cuda",
             source=src + "block_lm.cu",
             replaces="clustertracking_tpu/ops/lm.py:158", **entry))
+    # the dense auction of config 2's video (the reference runs it in XLA:
+    # a lax.scan over frames around a lax.while_loop); launches counted
+    # over [track]'s call
+    kernels.append(dict(
+        name="link_auction [track, config 2]", route="cuda",
+        source=src + "link_auction.cu",
+        replaces="clustertracking_tpu/ops/link.py:42",
+        launches=link_launches, **klink))
     # the mesh: the first shard's launch of each kernel the sharded path
     # runs, launches counted over the phase's sharded runs
     for name, route, file, line in (

@@ -44,8 +44,12 @@ def link(
       ``Linker`` (Hungarian per connected component) on the host.  This is
       the reference's own default algorithm, exact per subnet, not a
       stand-in for a device path; ``particle`` is int64.
-    - 'device': the auction on the dense [K, K·(memory+2)] cost matrix
+    - 'device': the auction on the dense [K, K·(memory+2)] costs
       (``ops/link.py::link_on_device``), ε-optimal; ``particle`` int32.
+      On CUDA one launch of the hand-written kernel
+      ``csrc/link_auction.cu`` links every frame, its track state in one
+      block's shared memory where it fits, else in a global workspace;
+      on the CPU a torch loop over frames, with the same particles.
     - 'device-binned': the auction on a spatially binned candidate graph
       (``link_on_device_binned``) for dense frames; ``particle`` int32.
     - 'auto': 'device' up to 2,048 features in the fullest frame, else

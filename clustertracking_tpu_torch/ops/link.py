@@ -2,8 +2,21 @@
 
 Counterpart of ``clustertracking_tpu/ops/link.py``.  The reference runs
 them as XLA (a ``lax.scan`` over frames with a ``lax.while_loop`` auction
-inside); here a Python loop walks the frames with the state tensors on the
-positions' device, and each auction round is a handful of torch ops.
+inside).  Here the dense auction has two routes, chosen by the device of
+its input (``auction_route``):
+
+- 'kernel': on CUDA, whatever K, memory and D.  One launch of
+  ``csrc/link_auction.cu`` runs every frame's costs, auction rounds and
+  track update in one block, and no frame needs the host: each frame's
+  rounds come back in one copy of T integers at the end.  The track state
+  sits in the block's shared memory where it fits (config 2: ~29 KB),
+  else in a global workspace (``last_stats['state']``); the library
+  decides, from the device's limit and the kernel's own static bytes.
+- 'torch' (``_link_torch``): on every other device (the CPU).  A Python
+  loop walks the frames with the state tensors on the positions' device,
+  and each auction round is a handful of torch ops.
+
+The binned auction (``link_on_device_binned``) always runs the torch loop.
 
 - Features per frame are padded to a static K; tracks live in a ring
   buffer of M = K·(memory+2) slots (new tracks overwrite the oldest slots,
@@ -21,23 +34,32 @@ positions' device, and each auction round is a handful of torch ops.
 
 Positions, prices and costs are float32, as in the reference: the auction
 compares prices that accumulate in float32, and float64 would decide
-other ties.  The reference's ``.at[i].set(..., mode="drop")`` with an
-out-of-range sentinel becomes a write into one extra dump slot, so that no
-round needs the host.  The host sees the state once every few rounds
-(``_check_points``) to stop the auction: a round after every feature is
-resolved changes nothing (every bid is −BIG, no track is won), so the
+other ties.  The kernel performs the torch loop's float32 operations in
+the same order, so both routes give the same particles bit for bit.  The
+torch loop writes the reference's ``.at[i].set(..., mode="drop")`` with an
+out-of-range sentinel into one extra dump slot, so that no round needs
+the host; the host sees the state once every few rounds (``_check_points``)
+to stop the auction.  The kernel reads whether any feature is unresolved
+after every round, on the device.  A round after every feature is resolved
+changes nothing (every bid is −BIG, no track is won), so either way the
 result is the reference's as long as the rounds stop at
 ``auction_rounds`` in all.  Each linker keeps the last call's
-``last_stats`` (frames, auction rounds run, host syncs).
+``last_stats``: frames; ``rounds``, per frame the rounds run (the torch
+loop's rounded up to its next check point, the kernel's exact); ``syncs``,
+per frame the host reads (the check points reached; 0 on the kernel
+route); and, for ``link_on_device``, the ``route`` taken.
+``link_on_device.launches_kernel`` counts the kernel's launches.
 
 Output: particle id per (frame, feature slot), int32, -1 on padding.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-__all__ = ["link_on_device", "link_on_device_binned"]
+__all__ = ["link_on_device", "link_on_device_binned", "auction_route"]
 
 _BIG = float(np.float32(1e30))
 _HALF_BIG = float(np.float32(1e30) / np.float32(2.0))
@@ -184,12 +206,38 @@ class _Tracks:
         return particle.to(torch.int32)
 
 
+def auction_route(device_type):
+    """The dense auction's route on a device of ``device_type``: 'kernel'
+    on CUDA, whatever the shape, else 'torch'."""
+    return "kernel" if device_type == "cuda" else "torch"
+
+
 def link_on_device(positions, valid, search_range: float, memory: int = 0,
                    auction_rounds: int = 64):
     """positions [T, K, D] f32, valid [T, K] bool → particle [T, K] int32,
-    on the positions' device: the auction on the dense [K, M] cost
-    matrix."""
+    on the positions' device: the auction on the dense [K, M] costs.
+
+    The route is ``auction_route``'s: on CUDA one launch of
+    ``csrc/link_auction.cu`` (counted in ``launches_kernel``) links the
+    whole video, checking after every round on the device whether any
+    feature is unresolved, and reads the rounds back once at the end
+    (``last_stats['syncs']`` is 0 a frame, ``rounds`` the rounds each
+    frame ran, ``state`` 'shared' or 'global' where the track state
+    lived); elsewhere ``_link_torch``'s frame loop, whose ``rounds`` stop
+    at the first check point with nothing unresolved and whose ``syncs``
+    count the check points read.  Both give the same particles."""
     positions = positions.to(torch.float32)
+    if auction_route(positions.device.type) == "kernel":
+        return _link_kernel(positions, valid, search_range, memory,
+                            auction_rounds)
+    return _link_torch(positions, valid, search_range, memory,
+                       auction_rounds)
+
+
+def _link_torch(positions, valid, search_range, memory=0,
+                auction_rounds=64):
+    """The dense auction as a Python loop over frames, each auction round
+    a handful of torch ops on the positions' device."""
     T, K, D = positions.shape
     M = K * (memory + 2)
     r2max, eps = _r2_eps(search_range)
@@ -205,12 +253,75 @@ def link_on_device(positions, valid, search_range: float, memory: int = 0,
         out.append(tracks.advance(ft, pos, ok))
         rounds.append(r)
         syncs.append(s)
-    link_on_device.last_stats = dict(frames=T, rounds=rounds, syncs=syncs)
+    link_on_device.last_stats = dict(frames=T, rounds=rounds, syncs=syncs,
+                                     route="torch")
     return torch.stack(out) if out else torch.zeros(
         (0, K), dtype=torch.int32, device=positions.device)
 
 
+_ARGTYPES = (
+    [ctypes.c_void_p] * 2               # positions, valid
+    + [ctypes.c_int] * 4                # T, K, D, memory
+    + [ctypes.c_float] * 2              # r2max, eps
+    + [ctypes.c_int]                    # auction_rounds
+    + [ctypes.c_void_p] * 4             # particle, rounds, workspace, stream
+)
+
+
+def _library():
+    from ._build import load_kernel_library
+
+    lib = load_kernel_library("link_auction")
+    if lib.link_auction_launch.argtypes is None:
+        lib.link_auction_launch.argtypes = _ARGTYPES
+        lib.link_auction_launch.restype = ctypes.c_int
+        lib.link_auction_workspace_bytes.argtypes = [ctypes.c_int] * 3
+        lib.link_auction_workspace_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _link_kernel(positions, valid, search_range, memory, auction_rounds):
+    """The dense auction of the whole video in one launch of
+    ``csrc/link_auction.cu`` on the positions' CUDA device."""
+    T, K, D = positions.shape
+    dev = positions.device
+    r2max, eps = _r2_eps(search_range)
+    if tuple(valid.shape) != (T, K) or memory < 0 or (T and not K):
+        raise ValueError(f"link_on_device: valid {tuple(valid.shape)} for "
+                         f"positions {(T, K, D)}, memory {memory}")
+    positions = positions.contiguous()
+    valid = valid.to(device=dev, dtype=torch.bool).contiguous()
+    # the particles, then each frame's rounds
+    buf = torch.empty(T * K + T, dtype=torch.int32, device=dev)
+    rounds, state = [], None
+    if T:
+        lib = _library()
+        with torch.cuda.device(dev):
+            nbytes = lib.link_auction_workspace_bytes(K, D, int(memory))
+            if nbytes < 0:
+                raise RuntimeError(f"link_auction: no state layout for K "
+                                   f"{K}, D {D}, memory {memory}")
+            ws = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                  if nbytes else None)
+            rc = lib.link_auction_launch(
+                positions.data_ptr(), valid.data_ptr(), T, K, D,
+                int(memory), r2max, eps, int(auction_rounds),
+                buf.data_ptr(), buf[T * K:].data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"link_auction: kernel launch failed, "
+                               f"cudaError {rc}")
+        link_on_device.launches_kernel += 1
+        rounds = buf[T * K:].cpu().tolist()
+        state = "shared" if ws is None else "global"
+    link_on_device.last_stats = dict(frames=T, rounds=rounds, syncs=[0] * T,
+                                     route="kernel", state=state)
+    return buf[:T * K].view(T, K)
+
+
 link_on_device.last_stats = None
+link_on_device.launches_kernel = 0
 
 
 def _neighbour_offsets(D):

@@ -11,7 +11,9 @@ host linker, int32 from the auctions) and ``attrs['link_backend']``.
 The host ``Linker`` is a copy: its ids and its ``state()`` equal the
 reference's after every frame, and a state the reference wrote resumes
 in the port's.  The card tests hold the auctions on CUDA to the same
-call on the CPU.
+call on the CPU, and the dense auction's kernel route
+(``csrc/link_auction.cu``) to its torch loop on the same CUDA tensors,
+particle for particle; the CPU tests hold the rule that picks the route.
 """
 import json
 
@@ -23,7 +25,9 @@ import torch
 import clustertracking_tpu_torch as ctt
 from clustertracking_tpu_torch.link import Linker, _pad_frames
 from clustertracking_tpu_torch.ops.link import (
+    _check_points, _library, _link_kernel, _link_torch, auction_route,
     link_on_device, link_on_device_binned)
+from clustertracking_tpu_torch.utils import guess_pos_columns
 
 torch.set_num_threads(1)
 
@@ -330,5 +334,268 @@ def test_auction_on_the_card_matches_cpu(scene, backend):
         pytest.skip("needs a CUDA device")
     for f, sr, kw in SCENES[scene]():
         on_card = ctt.link(f.copy(), sr, backend=backend, device="cuda", **kw)
+        if backend == "device" and len(f):
+            assert link_on_device.last_stats["route"] == "kernel"
         pd.testing.assert_frame_equal(on_card, _port_link(f, sr, backend,
                                                           **kw))
+
+
+# ------------------------------------------------- the dense auction's routes
+
+@pytest.mark.parametrize("device_type,want", [
+    ("cpu", "torch"), ("cuda", "kernel"), ("mps", "torch"), ("meta", "torch"),
+])
+def test_auction_route(device_type, want):
+    """The dense auction takes the kernel on CUDA, whatever K, memory and
+    D (the library puts the state in shared or global memory), and the
+    torch loop on every other device."""
+    assert auction_route(device_type) == want
+
+
+@pytest.mark.parametrize("D", [1, 3, 4])
+def test_cpu_dense_auction_keeps_the_torch_loop_for_any_d(D):
+    """On CPU tensors every D runs the torch loop, as before the kernel:
+    route 'torch', no launch, the particles of ``_link_torch``."""
+    rng = np.random.default_rng(5)
+    pos = torch.as_tensor(np.cumsum(rng.normal(0, 0.3, (6, 9, D)), axis=0)
+                          .astype(np.float32))
+    valid = torch.as_tensor(rng.uniform(size=(6, 9)) < 0.9)
+    launches = link_on_device.launches_kernel
+    out = link_on_device(pos, valid, 1.0, 1)
+    assert link_on_device.last_stats["route"] == "torch"
+    assert link_on_device.launches_kernel == launches
+    assert torch.equal(out, _link_torch(pos, valid, 1.0, 1))
+
+
+@pytest.mark.parametrize("case", ["valid_shape", "no_feature", "memory"])
+def test_link_kernel_refuses_bad_problems(case):
+    """The kernel route refuses, before it loads the library, a valid mask
+    of another shape, frames with no feature slot (the torch loop fails on
+    them too) and a negative memory."""
+    pos, memory = torch.zeros(3, 4, 2), 1
+    valid = torch.ones(3, 4, dtype=torch.bool)
+    if case == "valid_shape":
+        valid = torch.ones(3, 5, dtype=torch.bool)
+    elif case == "no_feature":
+        pos, valid = torch.zeros(3, 0, 2), torch.ones(3, 0, dtype=torch.bool)
+    else:
+        memory = -1
+    launches = link_on_device.launches_kernel
+    with pytest.raises(ValueError, match="link_on_device"):
+        _link_kernel(pos, valid, 1.0, memory, 64)
+    assert link_on_device.launches_kernel == launches
+
+
+def test_cpu_dense_auction_takes_the_torch_loop():
+    """On CPU tensors ``link_on_device`` is the torch loop: route 'torch',
+    no kernel launch, host syncs at the check points, rounds that stop at
+    a check point, and the particles of ``_link_torch``."""
+    f = _crossings(np.random.default_rng(1234), 1)[0]
+    pos, valid, _ = _pad_frames(f, ["y", "x"], "frame")
+    pos, valid = torch.as_tensor(pos), torch.as_tensor(valid)
+    launches = link_on_device.launches_kernel
+    out = link_on_device(pos, valid, 1.2)
+    st = link_on_device.last_stats
+    assert st["route"] == "torch"
+    assert link_on_device.launches_kernel == launches
+    assert st["rounds"][0] == st["syncs"][0] == 1      # no live track
+    assert 1 <= st["syncs"][1] <= 8
+    assert all(r in _check_points(64) for r in st["rounds"])
+    assert torch.equal(out, _link_torch(pos, valid, 1.2))
+
+
+def _dimer_video(seed, step, T=100, dimers=50, bond=5.0, frame=512,
+                 blink=0.05):
+    """Config 2's linking problem as truth rows: 50 Brownian dimers (100
+    features) over 100 frames of 512², centres stepping ``step`` px a
+    frame per axis; each feature misses a frame with probability
+    ``blink``, so tracks retire and come back within memory."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(12, frame - 12, (dimers, 2))
+    ang = rng.uniform(0, np.pi, dimers)
+    rows = []
+    for t in range(T):
+        c = np.clip(c + rng.normal(0, step, c.shape), 10, frame - 10)
+        ang = ang + rng.normal(0, 0.1, dimers)
+        half = 0.5 * bond * np.stack([np.sin(ang), np.cos(ang)], -1)
+        feats = np.concatenate([c + half, c - half])
+        keep = rng.uniform(size=len(feats)) >= blink
+        rows += [{"frame": t, "y": y, "x": x} for y, x in feats[keep]]
+    return pd.DataFrame(rows)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _both_routes(pos, valid, sr, memory=0, auction_rounds=64):
+    """The kernel route and the torch loop on the same CUDA tensors: the
+    same particles, one launch and no host sync a frame on the kernel
+    route, and each frame's loop rounds the first check point at or past
+    the kernel's.  Returns the kernel route's ``last_stats``."""
+    dev = _card()
+    pos = torch.as_tensor(pos, device=dev)
+    valid = torch.as_tensor(valid, device=dev)
+    launches = link_on_device.launches_kernel
+    got = link_on_device(pos, valid, sr, memory, auction_rounds)
+    st = link_on_device.last_stats
+    assert st["route"] == "kernel"
+    assert link_on_device.launches_kernel == launches + 1
+    want = _link_torch(pos, valid, sr, memory, auction_rounds)
+    loop = link_on_device.last_stats
+    assert torch.equal(got, want)
+    assert got.dtype == torch.int32 and got.device == want.device
+    assert st["frames"] == len(pos) and st["syncs"] == [0] * len(pos)
+    pts = _check_points(auction_rounds)
+    assert loop["rounds"] == [next(c for c in pts if c >= r)
+                              for r in st["rounds"]]
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", [s for s in SCENES
+                                   if s != "device_link_empty"])
+def test_link_kernel_matches_the_torch_loop(scene):
+    """Every link scene through both routes of the dense auction."""
+    for f, sr, kw in SCENES[scene]():
+        pos, valid, _ = _pad_frames(f, guess_pos_columns(f), "frame")
+        _both_routes(pos, valid, sr, kw.get("memory", 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,step", [(0, 0.5), (1, 1.0), (2, 1.5)])
+def test_link_kernel_matches_the_torch_loop_on_dimer_videos(seed, step):
+    """Config 2's size (100 frames, 100 features, search range 3, memory
+    6) through both routes."""
+    f = _dimer_video(seed, step)
+    pos, valid, _ = _pad_frames(f, ["y", "x"], "frame")
+    st = _both_routes(pos, valid, 3.0, memory=6)
+    assert len(st["rounds"]) == 100 and min(st["rounds"]) >= 1
+
+
+def _edge_case(name):
+    """(positions, valid, search_range, memory) of one edge case."""
+    rng = np.random.default_rng(11)
+    if name == "empty_frame":               # frame 2 has no rows
+        f = _walkers(rng, n=6, T=8)
+        pos, valid, _ = _pad_frames(f[f["frame"] != 2], ["y", "x"], "frame")
+        assert not valid[2].any()
+        return pos, valid, 3.0, 1
+    if name == "no_valid_feature":          # rows there, none valid
+        pos, valid, _ = _pad_frames(_walkers(rng, n=6, T=8), ["y", "x"],
+                                    "frame")
+        valid[3] = False
+        return pos, valid, 3.0, 2
+    if name == "one_feature":               # K = 1
+        f = _traj_df([[(t, 10.0 + 0.7 * t * (t % 3), 10.0)
+                       for t in range(8) if t != 4]])
+        pos, valid, _ = _pad_frames(f, ["y", "x"], "frame")
+        return pos, valid, 2.0, 1
+    if name == "memory_0":                  # M = 2K
+        pos, valid, _ = _pad_frames(_linker_frames_df(rng), ["y", "x"],
+                                    "frame")
+        return pos, valid, 1.5, 0
+    # D = 1, 3, 4: blinking walkers in a box
+    T, K, D = 10, 24, {"1d": 1, "3d": 3, "4d": 4}[name]
+    pos = np.cumsum(rng.normal(0, 0.4, (T, K, D)), axis=0) + rng.uniform(
+        0, 8 * 24 ** (1 / D - 1 / 3), (1, K, D))
+    return pos.astype(np.float32), rng.uniform(size=(T, K)) < 0.85, 1.5, 2
+
+
+def _linker_frames_df(rng):
+    frames = _linker_frames(rng)
+    return pd.DataFrame([{"frame": t, "y": y, "x": x}
+                         for t, p in enumerate(frames) for y, x in p])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["empty_frame", "no_valid_feature",
+                                  "one_feature", "memory_0", "1d", "3d",
+                                  "4d"])
+def test_link_kernel_edge_cases(name):
+    """An empty frame, a frame with no valid feature, K = 1, memory 0 and
+    D = 1, 3 and 4 (the instantiation with D read at run time for 1 and
+    4) through both routes."""
+    pos, valid, sr, memory = _edge_case(name)
+    _both_routes(pos, valid, sr, memory)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 2])
+def test_link_kernel_round_cap(cap):
+    """The crossing scenes with ``auction_rounds`` 1 and 2: the cap binds
+    (some frame needs more rounds), and both routes still agree."""
+    binds = False
+    for scene in ("device_auction_random_crossings",
+                  "binned_matches_host_random_crossings", "tied_bids"):
+        for f, sr, kw in SCENES[scene]():
+            pos, valid, _ = _pad_frames(f, ["y", "x"], "frame")
+            full = _both_routes(pos, valid, sr, kw.get("memory", 0))
+            binds |= max(full["rounds"]) > cap
+            st = _both_routes(pos, valid, sr, kw.get("memory", 0), cap)
+            assert max(st["rounds"]) <= cap
+    assert binds
+
+
+def _dense_walkers(K, T, D=2, seed=3):
+    """K walkers a frame in a box that holds ~2 a search range² (search
+    range 3), stepping 1 px a frame per axis, each missing a frame with
+    probability 0.1: positions [T, K, D] and valid [T, K]."""
+    rng = np.random.default_rng(seed)
+    side = 3.0 * np.sqrt(K / 2.0)
+    pos = rng.uniform(0, side, (1, K, D)) + np.cumsum(
+        rng.normal(0, 1.0, (T, K, D)), axis=0)
+    return pos.astype(np.float32), rng.uniform(size=(T, K)) >= 0.1
+
+
+def _largest_shared_k(memory, D):
+    """The largest K whose state the library keeps in shared memory."""
+    lib = _library()
+    lo, hi = 1, 4096
+    assert lib.link_auction_workspace_bytes(lo, D, memory) == 0
+    assert lib.link_auction_workspace_bytes(hi, D, memory) > 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if lib.link_auction_workspace_bytes(mid, D, memory) == 0:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["shared", "global"])
+def test_link_kernel_at_the_shared_memory_edge(side):
+    """At memory 6, the largest K whose state fits the block's shared
+    memory (with the kernel's static bytes) and the next, whose state the
+    library moves to a global workspace: both launch, and both equal the
+    torch loop."""
+    _card()
+    K = _largest_shared_k(6, 2) + (side == "global")
+    assert K * 8 * 36 > 200_000          # near 227 KB, not below it
+    pos, valid = _dense_walkers(K, 4)
+    st = _both_routes(pos, valid, 3.0, memory=6)
+    assert st["state"] == side
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 3])
+def test_link_kernel_at_the_auto_limit(D):
+    """'auto' sends up to 2,048 features to the dense auction: at memory 6
+    that is 16,384 track slots, in the global workspace, through both
+    routes."""
+    pos, valid = _dense_walkers(2048, 3, D=D)
+    st = _both_routes(pos, valid, 3.0, memory=6)
+    assert st["state"] == "global"
+
+
+@pytest.mark.cuda
+def test_config_2_state_is_in_shared_memory():
+    """Config 2's video (K 100, memory 6) keeps its state in shared
+    memory."""
+    _card()
+    f = _dimer_video(0, 1.0, T=5)
+    pos, valid, _ = _pad_frames(f, ["y", "x"], "frame")
+    assert _both_routes(pos, valid, 3.0, memory=6)["state"] == "shared"
